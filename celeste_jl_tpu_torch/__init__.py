@@ -1,0 +1,29 @@
+"""PyTorch / CUDA port of celeste_jl_tpu for NVIDIA Hopper (sm_90a).
+
+The JAX package `celeste_jl_tpu` stays the reference; this package mirrors
+its layout (models/, ops/, vi/, synthetic.py) so every counterpart is easy
+to find. It imports torch and never jax. Its numpy-only helpers
+(`celeste_jl_tpu.models.params`, `.priors`, `.image`, `celeste_jl_tpu.vi.init`)
+are reused, not copied.
+
+Slice ported so far: the batched source fit that bench.py times,
+`vi.optimize.fit_sources_compacted` with the pjacobi trust-region solver,
+through three hand-written CUDA kernels (csrc/):
+  refresh.cu        the analytic-Hessian refresh pixel pass (ops/refresh.py)
+  jacobi_sweep.cu   one parallel-Jacobi eigensolver sweep (ops/eigh.py)
+  tr_subproblem.cu  the trust-region subproblem in the eigenbasis (ops/tr.py)
+
+Every kernel has a plain PyTorch twin beside it. A wrapper runs the twin
+only for CPU tensors; for CUDA tensors it launches the kernel or raises.
+Batched functions take the lane axis S (or the S*B row axis) explicitly,
+and tensors arrive on a device the caller chose.
+"""
+
+import torch
+
+# The JAX reference runs its Newton-Schulz and re-formation products at
+# Precision.HIGHEST; their f32 ports must never run in TF32.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+assert not torch.backends.cuda.matmul.allow_tf32
+assert not torch.backends.cudnn.allow_tf32

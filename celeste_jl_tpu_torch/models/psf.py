@@ -1,0 +1,35 @@
+"""Point-spread function as a K-component Gaussian mixture (port of
+celeste_jl_tpu/models/psf.py). Packed (..., K, 6) rows are
+[alpha, mu1, mu2, sigma11, sigma12, sigma22]."""
+
+import numpy as np
+import torch
+
+
+def psf_alphas(psf):
+    return psf[..., 0]
+
+
+def psf_mus(psf):
+    return psf[..., 1:3]
+
+
+def psf_covs(psf):
+    s11, s12, s22 = psf[..., 3], psf[..., 4], psf[..., 5]
+    return torch.stack([torch.stack([s11, s12], -1),
+                        torch.stack([s12, s22], -1)], -2)
+
+
+def gaussian_psf(sigma=1.5, K=2):
+    """Isotropic test PSF of K concentric Gaussians, packed (K, 6) numpy
+    (the same values as the JAX package's gaussian_psf)."""
+    if K == 1:
+        alphas, scales = [1.0], [1.0]
+    else:
+        alphas = [0.8] + [0.2 / (K - 1)] * (K - 1)
+        scales = [1.0] + [2.0] * (K - 1)
+    covs = np.stack([np.eye(2) * (sigma * s) ** 2 for s in scales])
+    return np.concatenate(
+        [np.asarray(alphas, np.float64)[:, None], np.zeros((K, 2)),
+         covs[:, 0, 0, None], covs[:, 0, 1, None], covs[:, 1, 1, None]],
+        axis=1)

@@ -1,0 +1,136 @@
+"""Build and bind the package's CUDA kernels.
+
+`nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+-Xcompiler -fPIC` compiles csrc/*.cu into one shared library with a plain C
+interface, at first use, into build/kernels/ at the repository root, keyed
+by a hash of the sources and flags; ctypes loads it. Nothing outside the
+repository's sources is built or fetched. Import builds nothing: the CPU
+tests import every module on machines without nvcc.
+
+Each entry point is `celeste_<kernel>_<f32|f64>(pointers..., ints...,
+stream)` and returns the launch's cudaGetLastError() as an int.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernel -> argument types of its C entry point (the stream comes last)
+ENTRY_POINTS = {
+    # comp, rowp, pxf, m15, red | G, C, ks, N, cols | stream
+    "refresh": [_P] * 5 + [_I] * 5 + [_P],
+    # A, Q, A_out, Q_out | B, D | stream
+    "jacobi_sweep": [_P] * 4 + [_I] * 2 + [_P],
+    # gq, w, delta, p, pred | B, D, iters | stream
+    "tr_subproblem": [_P] * 5 + [_I] * 3 + [_P],
+}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+_loaded = {}
+
+
+def _sources():
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc():
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def build():
+    """Compile csrc/*.cu unless the library for these sources exists, and
+    return its path. The compiler's report (registers, shared memory,
+    spills per kernel) is kept beside it as <library>.ptxas.txt."""
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + f.read())
+    path = os.path.join(BUILD_DIR, f"libceleste_kernels_{h.hexdigest()[:16]}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cu = [s for s in srcs if s.endswith(".cu")]
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    with open(path + ".ptxas.txt", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, path)
+    return path
+
+
+def library():
+    """The loaded kernel library, built on first use."""
+    if "lib" not in _loaded:
+        path = build()
+        lib = ctypes.CDLL(path)
+        for name, argtypes in ENTRY_POINTS.items():
+            for suffix in _SUFFIX.values():
+                fn = getattr(lib, f"celeste_{name}_{suffix}")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        lib.celeste_error_string.argtypes = [ctypes.c_int]
+        lib.celeste_error_string.restype = ctypes.c_char_p
+        _loaded["lib"] = lib
+    return _loaded["lib"]
+
+
+def check_cuda(dtype, device):
+    """Raise unless (dtype, device) is one a kernel takes."""
+    if device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on a {device} tensor")
+    if dtype not in _SUFFIX:
+        raise ValueError(f"CUDA kernel takes float32 or float64, not {dtype}")
+
+
+def launch(name, dtype, *args):
+    """Call kernel `name` for `dtype` on the current stream. Tensor
+    arguments must be contiguous, of `dtype`, on one CUDA device; raises if
+    the launch reports an error."""
+    device = None
+    cargs = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if a.dtype != dtype or not a.is_contiguous():
+                raise ValueError(f"{name}: needs contiguous {dtype}, got "
+                                 f"{a.dtype} contiguous={a.is_contiguous()}")
+            if device is None:
+                device = a.device
+            elif a.device != device:
+                raise ValueError(f"{name}: tensors on {device} and {a.device}")
+            cargs.append(ctypes.c_void_p(a.data_ptr()))
+        else:
+            cargs.append(ctypes.c_int(int(a)))
+    lib = library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib, f"celeste_{name}_{_SUFFIX[dtype]}")(
+            *cargs, ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.celeste_error_string(err).decode()}")

@@ -1,0 +1,114 @@
+"""The port's CUDA kernels against their plain torch twins, on the card.
+
+Every test here needs a CUDA device and nvcc, is marked `cuda`, and skips
+without a device. The file imports no JAX, so it also runs where JAX is not
+installed:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from celeste_jl_tpu_torch.ops import eigh, refresh, tr
+from celeste_jl_tpu_torch.ops.bijectors import enforce, to_bound, to_free
+from celeste_jl_tpu_torch.ops.newton import NewtonConfig
+from celeste_jl_tpu_torch.synthetic import synthetic_patch_batch
+from celeste_jl_tpu_torch.vi.elbo import brightness_coeffs
+from celeste_jl_tpu_torch.vi.optimize import _make_bounds, fit_sources
+
+F64 = torch.float64
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rows(device, n_sources=8, tile=16, seed=3):
+    _, vp0s, p = synthetic_patch_batch(n_sources, tile=tile, seed=seed,
+                                       dtype=np.float64, device=device)
+    vp0 = torch.as_tensor(vp0s, device=device)
+    bounds = _make_bounds(vp0[:, 0:2])
+    vp = to_bound(to_free(enforce(vp0, bounds), bounds), bounds)
+    S, B = vp.shape[0], p.pixels.shape[1]
+    C20 = brightness_coeffs(vp)
+    zero = torch.zeros_like(p.sky)
+    rows, mix = refresh.band_pixel_rows(
+        vp[:, None, 0:6].expand(S, B, 6), C20[:, :10].reshape(S, 5, 2),
+        C20[:, 10:].reshape(S, 5, 2), p.psf, p.wcs_jacobian, p.world_center,
+        p.pixel_center, p.offset, p.pixels, p.mask, p.sky, p.iota, zero,
+        zero)
+    return rows, mix[0], (tile, tile)
+
+
+@pytest.mark.parametrize("tile", [16, 40])
+def test_refresh_kernel_matches_plain(cuda, tile):
+    rows, ks, pdims = _rows(cuda, tile=tile)
+    n0 = refresh.pixel_terms.launches
+    got = refresh.pixel_terms(*rows, ks=ks, pdims=pdims)
+    want = refresh.pixel_terms_plain(*rows, ks=ks, pdims=pdims)
+    assert refresh.pixel_terms.launches == n0 + 1
+    for a, b in zip(got, want):
+        scale = b.abs().amax(dim=0, keepdim=True).clamp(min=1e-30)
+        assert float(((a - b).abs() / scale).max()) < 1e-9
+
+
+def test_sweep_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(1)
+    V, _ = np.linalg.qr(rng.standard_normal((42, 42)))
+    H = (V * np.logspace(-5, 3, 42)) @ V.T
+    H = H + 1e-3 * rng.standard_normal((64, 42, 42))
+    A = torch.tensor(0.5 * (H + H.transpose(0, 2, 1)), device=cuda)
+    Q = torch.eye(42, dtype=F64, device=cuda).expand_as(A)
+    n0 = eigh.jacobi_sweep.launches
+    Ak, Qk = eigh.jacobi_sweep(A, Q)
+    Ap, Qp = eigh.jacobi_sweep_plain(A, Q)
+    assert eigh.jacobi_sweep.launches == n0 + 1
+    norm = torch.linalg.matrix_norm(A)[:, None, None]
+    assert float(((Ak - Ap).abs() / norm).max()) < 1e-9
+    assert float((Qk - Qp).abs().max()) < 1e-9
+
+
+def test_tr_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(7)
+    B, D = 1000, 42
+    w = rng.standard_normal((B, D)) * 3.0
+    w[: B // 3] = np.abs(w[: B // 3]) + 0.5
+    gq = rng.standard_normal((B, D))
+    delta = 10.0 ** rng.uniform(-3, 1, B)
+    gq, w, delta = (torch.tensor(a, device=cuda) for a in (gq, w, delta))
+    n0 = tr.tr_subproblem.launches
+    p_k, pred_k = tr.tr_subproblem(gq, w, delta, 48)
+    p_p, pred_p = tr.tr_subproblem_plain(gq, w, delta, 48)
+    assert tr.tr_subproblem.launches == n0 + 1
+    torch.testing.assert_close(p_k, p_p, rtol=1e-9, atol=1e-9)
+    torch.testing.assert_close(pred_k, pred_p, rtol=1e-9, atol=1e-9)
+
+
+def test_wrappers_reject_what_kernels_do_not_take(cuda):
+    x = torch.zeros(4, 42, dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError):
+        tr.tr_subproblem(x, x, x[:, 0], 48)
+    A = torch.zeros(2, 41, 41, dtype=F64, device=cuda)
+    with pytest.raises(ValueError):
+        eigh.jacobi_sweep(A, A)
+
+
+def test_kernel_fit_matches_plain_fit(cuda):
+    _, vp0s, p = synthetic_patch_batch(4, tile=16, seed=2, dtype=np.float64,
+                                       device=cuda)
+    vp = torch.as_tensor(vp0s, device=cuda)
+    cfg = NewtonConfig(tr_solver="pjacobi", jacobi_max_sweeps=4,
+                       tr_kernel="pallas", refresh_kernel="pallas",
+                       max_iters=12)
+    rk = fit_sources(vp, p, config=cfg)
+    rp = fit_sources(vp, p, config=cfg, plain=True)
+    np.testing.assert_array_equal(rk.vp[:, 26].cpu().numpy() > 0.5,
+                                  rp.vp[:, 26].cpu().numpy() > 0.5)
+    e = rp.elbo.cpu().numpy()
+    assert np.all((rk.elbo.cpu().numpy() - e) / np.abs(e) > -1e-4)
