@@ -1,17 +1,23 @@
 """PyTorch / CUDA port of celeste_jl_tpu for NVIDIA Hopper (sm_90a).
 
 The JAX package `celeste_jl_tpu` stays the reference; this package mirrors
-its layout (models/, ops/, vi/, synthetic.py) so every counterpart is easy
-to find. It imports torch and never jax. Its numpy-only helpers
-(`celeste_jl_tpu.models.params`, `.priors`, `.image`, `celeste_jl_tpu.vi.init`)
-are reused, not copied.
+its layout (models/, ops/, vi/, mcmc/, parallel/, utils/, synthetic.py) so
+every counterpart is easy to find. It imports torch and never jax, nor
+anything of `celeste_jl_tpu`: the numpy-only modules it needs
+(models/params.py, models/priors.py with data/priors.npz, models/image.py,
+vi/init.py) are its own copies.
 
-Slice ported so far: the batched source fit that bench.py times,
+Slices ported so far: the batched source fit that bench.py times,
 `vi.optimize.fit_sources_compacted` with the pjacobi trust-region solver,
-through three hand-written CUDA kernels (csrc/):
+and MCMC/AIS, `mcmc.infer.run_ais_batched`, through hand-written CUDA
+kernels (csrc/):
   refresh.cu        the analytic-Hessian refresh pixel pass (ops/refresh.py)
   jacobi_sweep.cu   one parallel-Jacobi eigensolver sweep (ops/eigh.py)
+  jacobi_sweep_split.cu  the same sweep in two launches, A rounds with a
+                    (c, s) log, then its replay on Q (ops/eigh.py)
   tr_subproblem.cu  the trust-region subproblem in the eigenbasis (ops/tr.py)
+  render.cu         the mixture render + Poisson log-likelihood of the MCMC
+                    densities (ops/render.py)
 
 Every kernel has a plain PyTorch twin beside it. A wrapper runs the twin
 only for CPU tensors; for CUDA tensors it launches the kernel or raises.

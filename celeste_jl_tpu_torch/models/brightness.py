@@ -3,7 +3,7 @@ celeste_jl_tpu/models/brightness.py, source_brightness.jl:27-202)."""
 
 import torch
 
-from celeste_jl_tpu.models.params import ids
+from .params import ids
 
 
 def brightness_moments(vp):

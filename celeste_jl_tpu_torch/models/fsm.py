@@ -2,11 +2,12 @@
 (port of celeste_jl_tpu/models/fsm.py). Functions broadcast over leading
 (source, band) axes."""
 
+import functools
+
 import torch
 
-from celeste_jl_tpu.models.params import GAL_ETA, GAL_IS_DEV, GAL_NU
-
 from .bvn import eval_bvn_mixture_grid, get_bvn_cov
+from .params import GAL_ETA, GAL_IS_DEV, GAL_NU
 from .patches import pixel_coord_grids
 from .psf import psf_alphas, psf_covs, psf_mus
 
@@ -14,7 +15,13 @@ from .psf import psf_alphas, psf_covs, psf_mus
 def galaxy_prototypes(like):
     """(eta, nu, is_dev) of the 14 galaxy profile components as tensors of
     `like`'s dtype and device."""
-    kw = dict(dtype=like.dtype, device=like.device)
+    return _prototypes(like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _prototypes(dtype, device):
+    # constant: copied to the device once, not on every render
+    kw = dict(dtype=dtype, device=device)
     return (torch.as_tensor(GAL_ETA, **kw), torch.as_tensor(GAL_NU, **kw),
             torch.as_tensor(GAL_IS_DEV, **kw))
 

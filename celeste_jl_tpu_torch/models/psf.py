@@ -33,3 +33,19 @@ def gaussian_psf(sigma=1.5, K=2):
         [np.asarray(alphas, np.float64)[:, None], np.zeros((K, 2)),
          covs[:, 0, 0, None], covs[:, 0, 1, None], covs[:, 1, 1, None]],
         axis=1)
+
+
+def get_psf_width(psf, width_scale=1.0):
+    """Effective PSF width heuristic (model/psf_model.jl:32-52): the
+    alpha-weighted mean of component major standard deviations, ignoring
+    negligible components, scaled by width_scale. psf: (K, 6) numpy."""
+    alphas = np.asarray(psf[:, 0])
+    covs = np.asarray(psf[:, 3:6])
+    w = 0.0
+    total = 0.0
+    for k in range(psf.shape[0]):
+        if alphas[k] > 0.05:
+            major_sd = np.sqrt(max(covs[k, 0], covs[k, 2]))
+            w += alphas[k] * major_sd
+            total += alphas[k]
+    return width_scale * w / total

@@ -1,14 +1,16 @@
 """Build and bind the package's CUDA kernels.
 
-`nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC` compiles csrc/*.cu into one shared library with a plain C
-interface, at first use, into build/kernels/ at the repository root, keyed
-by a hash of the sources and flags; ctypes loads it. Nothing outside the
-repository's sources is built or fetched. Import builds nothing: the CPU
-tests import every module on machines without nvcc.
+`nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+-fPIC` compiles each csrc/*.cu to an object, one nvcc process per source,
+all started together; the objects are linked into one shared library with
+a plain C interface, at first use, into build/kernels/ at the repository
+root, keyed by a hash of the sources and flags; ctypes loads it. Nothing
+outside the repository's sources is built or fetched. Import builds
+nothing: the CPU tests import every module on machines without nvcc.
 
 Each entry point is `celeste_<kernel>_<f32|f64>(pointers..., ints...,
-stream)` and returns the launch's cudaGetLastError() as an int.
+stream)` and returns the launch's cudaGetLastError() as an int. Pointer
+arguments are tensors of the kernel's float type, or int32 index tensors.
 """
 
 import ctypes
@@ -23,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> argument types of its C entry point (the stream comes last)
@@ -34,6 +36,13 @@ ENTRY_POINTS = {
     "jacobi_sweep": [_P] * 4 + [_I] * 2 + [_P],
     # gq, w, delta, p, pred | B, D, iters | stream
     "tr_subproblem": [_P] * 5 + [_I] * 3 + [_P],
+    # A, A_out, cs_log | B, D | stream
+    "jacobi_sweep_a": [_P] * 3 + [_I] * 2 + [_P],
+    # Q, cs_log, Q_out | B, D | stream
+    "jacobi_replay_q": [_P] * 3 + [_I] * 2 + [_P],
+    # comps, meta, pixels, mask, iota, bg, tile_index, out | R, C, P, T |
+    # stream
+    "mixture_poisson_ll": [_P] * 8 + [_I] * 4 + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -72,14 +81,30 @@ def build():
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cu = [s for s in srcs if s.endswith(".cu")]
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in (s for s in srcs if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports = [p.communicate()[0] for p in procs]
+    failed = [r for p, r in zip(procs, reports) if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        reports.append(link.stdout)
+        if link.returncode != 0:
+            failed.append(link.stdout)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     with open(path + ".ptxas.txt", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("\n".join(reports))
     os.replace(tmp, path)
     return path
 
@@ -110,15 +135,15 @@ def check_cuda(dtype, device):
 
 def launch(name, dtype, *args):
     """Call kernel `name` for `dtype` on the current stream. Tensor
-    arguments must be contiguous, of `dtype`, on one CUDA device; raises if
-    the launch reports an error."""
+    arguments must be contiguous, of `dtype` (or int32 indices), on one
+    CUDA device; raises if the launch reports an error."""
     device = None
     cargs = []
     for a in args:
         if isinstance(a, torch.Tensor):
-            if a.dtype != dtype or not a.is_contiguous():
-                raise ValueError(f"{name}: needs contiguous {dtype}, got "
-                                 f"{a.dtype} contiguous={a.is_contiguous()}")
+            if a.dtype not in (dtype, torch.int32) or not a.is_contiguous():
+                raise ValueError(f"{name}: needs contiguous {dtype} or int32, "
+                                 f"got {a.dtype} contiguous={a.is_contiguous()}")
             if device is None:
                 device = a.device
             elif a.device != device:

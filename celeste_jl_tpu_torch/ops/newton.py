@@ -16,7 +16,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .eigh import jacobi_eigh, jacobi_sweep, jacobi_sweep_plain
+from .eigh import (jacobi_eigh, jacobi_sweep, jacobi_sweep_plain,
+                   jacobi_sweep_split, jacobi_sweep_split_plain)
 from .jacobi import pad_to_even
 from .tr import tr_subproblem, tr_subproblem_plain
 
@@ -26,7 +27,9 @@ class NewtonConfig(NamedTuple):
     tr_solver "eig" (torch.linalg.eigh, the f64 parity route) and "pjacobi"
     (ops/eigh.py) with secular="bisect". refresh_kernel and tr_kernel
     "pallas" select the CUDA kernels' wrappers (ops/refresh.pixel_terms,
-    ops/tr.tr_subproblem), "xla" their plain twins."""
+    ops/tr.tr_subproblem), "xla" their plain twins. eigh_fused (the
+    JAX package's CELESTE_EIGH_FUSED, a field here) picks the pjacobi
+    sweep: the fused kernel (True) or the split pair (False)."""
     max_iters: int = 50
     initial_delta: float = 1.0
     delta_hat: float = 1e9
@@ -47,6 +50,7 @@ class NewtonConfig(NamedTuple):
     jacobi_max_sweeps: int = 12
     tr_kernel: str = "xla"
     refresh_kernel: str = "xla"
+    eigh_fused: bool = True
 
 
 class NewtonState(NamedTuple):
@@ -125,7 +129,10 @@ def minimize_newton_tr(fgh: Callable, x0: torch.Tensor,
         fg = lambda x: fgh(x)[:2]
     tr_solve = (tr_subproblem if config.tr_kernel == "pallas" and not plain
                 else tr_subproblem_plain)
-    sweep = jacobi_sweep_plain if plain else jacobi_sweep
+    if config.eigh_fused:
+        sweep = jacobi_sweep_plain if plain else jacobi_sweep
+    else:
+        sweep = jacobi_sweep_split_plain if plain else jacobi_sweep_split
 
     S, D = x0.shape
     kw = dict(dtype=x0.dtype, device=x0.device)

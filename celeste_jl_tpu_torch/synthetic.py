@@ -1,20 +1,21 @@
-"""Synthetic patch batches for benchmarks and smoke runs (port of
-celeste_jl_tpu/synthetic.synthetic_patch_batch).
+"""Synthetic scenes for benchmarks and smoke runs (port of
+celeste_jl_tpu/synthetic.py: synthetic_patch_batch, make_blank_images,
+sample_star, sample_galaxy, gen_images_fast; ais_bench_scene is the scene
+of benchmark/bench_mcmc.py).
 
 The truth and the Poisson noise are drawn from numpy's default_rng(seed)
-in the JAX package's order, so both packages make the same batch; the
+in the JAX package's order, so both packages make the same scene; the
 expected tiles are rendered with torch on the caller's device.
 """
 
 import numpy as np
 import torch
 
-from celeste_jl_tpu.models.image import CatalogEntry
-from celeste_jl_tpu.vi.init import generic_init_source
-
 from .models.fsm import galaxy_density_grid, star_density_grid
-from .models.patches import SkyPatch
+from .models.image import CatalogEntry, Image
+from .models.patches import SkyPatch, make_patches_batched
 from .models.psf import gaussian_psf
+from .vi.init import generic_init_source
 
 
 def flux_from_colors(r_flux, colors):
@@ -27,6 +28,108 @@ def flux_from_colors(r_flux, colors):
     l[1] = l[2] / np.exp(colors[1])
     l[0] = l[1] / np.exp(colors[0])
     return l
+
+
+def make_blank_images(H=40, W=40, sky_nmgy=0.1, nelec_per_nmgy=1000.0,
+                      psf=None, n_bands=5):
+    psf = psf if psf is not None else gaussian_psf()
+    return [Image(pixels=np.zeros((H, W)), band=b, psf=psf, sky=sky_nmgy,
+                  nelec_per_nmgy=nelec_per_nmgy) for b in range(n_bands)]
+
+
+def sample_star(pos=(20.0, 20.0), r_flux=10.0):
+    """A star catalog entry with colors at zero."""
+    fluxes = flux_from_colors(r_flux, np.zeros(4))
+    return CatalogEntry(pos=np.asarray(pos, dtype=np.float64), is_star=True,
+                        star_fluxes=fluxes, gal_fluxes=np.maximum(fluxes, 0.1))
+
+
+def sample_galaxy(pos=(20.0, 20.0), r_flux=10.0, gal_frac_dev=0.3,
+                  gal_axis_ratio=0.7, gal_angle=0.5, gal_radius_px=2.0):
+    fluxes = flux_from_colors(r_flux, np.zeros(4))
+    return CatalogEntry(pos=np.asarray(pos, dtype=np.float64), is_star=False,
+                        star_fluxes=np.maximum(fluxes, 0.1),
+                        gal_fluxes=fluxes, gal_frac_dev=gal_frac_dev,
+                        gal_axis_ratio=gal_axis_ratio, gal_angle=gal_angle,
+                        gal_radius_px=gal_radius_px)
+
+
+def gen_images_fast(images, bodies, expectation=False, seed=42, radius=25,
+                    *, device):
+    """Overwrite each image's pixels with a render of `bodies` plus its sky,
+    Poisson-sampled (Synthetic.jl:30-47): per band, every source's unit-flux
+    tile (P = 2 radius + 8) is rendered in f64 on `device` in one batched
+    call per source type, the tiles are added host-side in `bodies` order,
+    and numpy's default_rng(seed) draws the counts image by image, as the
+    JAX package does."""
+    rng = np.random.default_rng(seed)
+    S = len(bodies)
+    P = int(2 * radius + 8)
+    is_star = np.array([ce.is_star for ce in bodies], dtype=bool)
+    if S:
+        positions = np.array([np.asarray(ce.pos, np.float64) for ce in bodies])
+        patches = make_patches_batched(images, positions,
+                                       np.full(S, float(radius)), P)
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+        field = lambda f: np.stack([getattr(p, f) for p in patches])
+        psf, jac, wc, pc, off = (t(field(f)) for f in (
+            "psf", "wcs_jacobian", "world_center", "pixel_center", "offset"))
+        shape = t(np.array([[ce.gal_frac_dev, ce.gal_axis_ratio, ce.gal_angle,
+                             ce.gal_radius_px] for ce in bodies],
+                           dtype=np.float64))[:, None]            # (S, 1, 4)
+        pos = t(positions)[:, None]                                # (S, 1, 2)
+        args = (psf, jac, wc, pc, off, P)
+        star = t(is_star)[:, None, None, None]
+        tiles = torch.where(
+            star, star_density_grid(pos, *args),
+            galaxy_density_grid(pos, shape[..., 0], shape[..., 1],
+                                shape[..., 2], shape[..., 3], *args)
+        ).cpu().numpy()                                            # (S, B, P, P)
+        offs = field("offset")
+
+    for b, img in enumerate(images):
+        H, W = img.H, img.W
+        s = img.sky
+        nmgy = (np.array(s, dtype=np.float64) * np.ones((H, W))
+                if np.ndim(s) != 2 else np.array(s, dtype=np.float64))
+        for si, ce in enumerate(bodies):
+            flux = (ce.star_fluxes if ce.is_star else ce.gal_fluxes)[img.band]
+            o = offs[si, b]
+            i0, i1 = max(0, o[0]), min(H, o[0] + P)
+            j0, j1 = max(0, o[1]), min(W, o[1] + P)
+            if i0 < i1 and j0 < j1:
+                nmgy[i0:i1, j0:j1] += float(flux) * tiles[
+                    si, b, i0 - o[0]:i1 - o[0], j0 - o[1]:j1 - o[1]]
+        io_ = img.nelec_per_nmgy
+        electrons = nmgy * (np.asarray(io_)[:, None] if np.ndim(io_) == 1
+                            else io_)
+        img.pixels = electrons if expectation else rng.poisson(
+            electrons).astype(np.float64)
+    return images
+
+
+def ais_bench_scene(n_sources=64, *, device):
+    """The scene benchmark/bench_mcmc.py infers: n_sources alternating stars
+    (r-flux 10-40 nMgy) and galaxies (15-50 nMgy, radius 1.5-3 px) on a
+    48-pixel grid, jittered by +-2 px, rendered by gen_images_fast(seed=11).
+    Returns (images, catalog)."""
+    rng = np.random.default_rng(3)
+    grid = int(np.ceil(np.sqrt(n_sources)))
+    size = grid * 48 + 32
+    images = make_blank_images(H=size, W=size, sky_nmgy=0.1,
+                               nelec_per_nmgy=1000.0)
+    catalog = []
+    for i in range(n_sources):
+        pos = (24.0 + 48.0 * (i // grid) + rng.uniform(-2, 2),
+               24.0 + 48.0 * (i % grid) + rng.uniform(-2, 2))
+        if i % 2 == 0:
+            catalog.append(sample_star(pos=pos, r_flux=rng.uniform(10, 40)))
+        else:
+            catalog.append(sample_galaxy(
+                pos=pos, r_flux=rng.uniform(15, 50),
+                gal_radius_px=rng.uniform(1.5, 3.0)))
+    gen_images_fast(images, catalog, seed=11, device=device)
+    return images, catalog
 
 
 def synthetic_patch_batch(n_sources, tile=32, radius=None, sky_nmgy=0.1,

@@ -17,11 +17,10 @@ import math
 import numpy as np
 import torch
 
-from celeste_jl_tpu.models import priors as priors_mod
-from celeste_jl_tpu.models.params import ids
-
+from ..models import priors as priors_mod
 from ..models.brightness import brightness_moments
 from ..models.fsm import source_densities_all_bands
+from ..models.params import ids
 
 
 def source_fs_grids(vp, patch):
@@ -101,7 +100,7 @@ class PriorConstants:
 
     @classmethod
     def from_prior(cls, p, device, dtype):
-        """From a numpy PriorParams (celeste_jl_tpu.models.priors)."""
+        """From a numpy PriorParams (models/priors.py)."""
         cov = np.asarray(p.color_cov)
         inv = np.zeros_like(cov)
         logdet = np.zeros((8, 2))

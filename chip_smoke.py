@@ -16,8 +16,27 @@ Phases, one line each; the first failure exits non-zero:
   4. the kernels against the plain twins on the slice: 64 sources fitted
      twice with bench.py's configuration; in f64 the classifications agree
      and no lane's ELBO is worse than the plain run's by more than 1e-4
-     relative; the same comparison in f32 is reported.
-The line before the last is the kernels' JSON record; the last line is
+     relative; the same comparison in f32 is reported;
+  5. the MCMC slice's kernel K4 (the fused render + Poisson score) against
+     its twin at the AIS shapes (64 sources x 10 samples, both models,
+     32x32 tiles, plus 16x16 and 64x64), and the split Jacobi sweep K2a +
+     K2b against its twin and against K2, with both median times;
+  6. the MCMC slice at full width: run_ais_batched on bench_mcmc.py's
+     64-source scene with the production AIS program (50 temperatures x
+     10 samples, 25-step chains, 1000 bootstrap draws, both models) in
+     f32; every lnZ and chain value finite, galaxy recall 1.0 and 2-sd
+     calibration coverage >= 0.85 on r-flux and the four colors;
+  7. the AIS program through K4 and through its twin in f64 from the same
+     seed on 8 sources (20 temperatures x 4 samples, 10-step chains): the
+     same star/galaxy side everywhere and lnZ within 1e-6 relative on at
+     least 7 of 8 sources;
+  8. the fit of phase 4 with the split sweep (NewtonConfig.eigh_fused =
+     False) against the fused one, f64, 256 sources: no flip, the same
+     iterations per lane, ELBOs within 1e-9 relative.
+Each phase prints its wall time. The line before the last is the kernels'
+JSON record (each kernel's launches counted on its path: phase 3 for K1-K3,
+6 for K4, 8 for K2a/K2b; its bound from this run's shapes at the H100's
+published f32 and memory peaks); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -38,6 +57,19 @@ K1_F32_TOL = 1e-4     # f32 sums of ~1e3 pixel terms, with cancellation
 K3_F32_TOL = 2e-5     # tests/test_pallas_tr.py:49 (rtol = atol = 2e-5)
 EIGH_BARS = dict(dw=5e-3, orth=1e-4, resid=1e-4)   # test_pallas_eigh.py:46-54
 SLICE_ELBO_TOL = 1e-4  # tests/test_pallas_eigh.py:69-108
+K4_F64_TOL = 1e-10    # per row, relative: f64 sums of ~1e3 pixel terms
+K4_F32_TOL = 2e-4     # tests/test_pallas_render.py:70
+SPLIT_F64_TOL = 1e-11  # of ||H||, as K2's sweep in phase 2
+COVERAGE_BAR = 0.85   # 2-sd coverage; the JAX run gave 0.906-0.984
+SPLIT_ELBO_TOL = 1e-9
+# the AIS program of benchmark/bench_mcmc.py (the production config)
+FULL_AIS = dict(num_temperatures=50, num_samples=10, num_samples_per_chain=25)
+ROUTE_AIS = dict(num_temperatures=20, num_samples=4, num_samples_per_chain=10)
+
+# published peaks of one H100 SXM (on-chip-measurement guide): float32
+# outside the tensor cores, and HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 class PhaseError(Exception):
@@ -64,6 +96,14 @@ def timed_ms(fn, torch, reps=10):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound(flops, nbytes):
+    """The least time the card could take for `flops` f32 operations and
+    `nbytes` of device memory traffic, and which of the two bounds it."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def _rel_err(got, want):
@@ -195,8 +235,17 @@ def phase_kernels(device="cuda", k1_sets=((1024, 32), (64, 16), (16, 128)),
                                                          pdims=pdims))
                 plain_ms = time_fn(lambda: refresh.pixel_terms_plain(
                     *rows, ks=ks, pdims=pdims))
+                # pass 1's work on the active pixels, ~(60 C + 400) flops
+                # each (csrc/refresh.cu); every input read and output
+                # written once
+                N = rows[6].shape[-1]
+                active = float(rows[7].sum())
+                nbytes = 4 * (G * C * 42 + G * 6 + 5 * G * N
+                              + G * C * 15 + G * 72)
                 rec["refresh"] = dict(max_abs_err=abs_err, ms=ms,
-                                      plain_ms=plain_ms)
+                                      plain_ms=plain_ms, library_ms=None,
+                                      **bound(active * (60 * C + 400),
+                                              nbytes))
                 msg += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
             print(msg, flush=True)
 
@@ -250,7 +299,8 @@ def phase_kernels(device="cuda", k1_sets=((1024, 32), (64, 16), (16, 128)),
             ms = time_fn(lambda: eigh.jacobi_sweep(H, eye))
             plain_ms = time_fn(lambda: eigh.jacobi_sweep_plain(H, eye))
             rec["jacobi_sweep"] = dict(max_abs_err=abs_err, ms=ms,
-                                       plain_ms=plain_ms)
+                                       plain_ms=plain_ms, library_ms=None,
+                                       **sweep_bound(n_mats, 42, "aq"))
             msg += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
         print(msg, flush=True)
 
@@ -286,12 +336,27 @@ def phase_kernels(device="cuda", k1_sets=((1024, 32), (64, 16), (16, 128)),
             ms = time_fn(lambda: tr.tr_subproblem(gq, w, delta, 48))
             plain_ms = time_fn(lambda: tr.tr_subproblem_plain(gq, w, delta,
                                                               48))
-            rec["tr_subproblem"] = dict(max_abs_err=err, ms=ms,
-                                        plain_ms=plain_ms)
+            # ~5 flops per coordinate per bisection; gq, w, delta in,
+            # p and pred out
+            rec["tr_subproblem"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bound(n_mats * 48 * 42 * 5, 4 * n_mats * (3 * 42 + 2)))
             msg += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
         print(msg, flush=True)
     print("phase 2 ok: K1, K2, K3 agree with their plain twins", flush=True)
     return rec
+
+
+def sweep_bound(B, D, part):
+    """Bound of one sweep of B D x D matrices: per round 3 flops per entry
+    rotated (rows and columns of A, columns of Q) and ~12 per pair for its
+    (c, s); bytes of A and/or Q in and out, and of the split's (c, s) log."""
+    K, rounds = D // 2, D - 1
+    per_round = {"aq": 9 * D * D + 12 * K, "a": 6 * D * D + 12 * K,
+                 "q": 3 * D * D}[part]
+    mats = 2 if part != "aq" else 4
+    log = B * rounds * 2 * K if part != "aq" else 0
+    return bound(B * rounds * per_round, 4 * (mats * B * D * D + log))
 
 
 def bench_config():
@@ -381,6 +446,333 @@ def phase_compare(device="cuda", n_sources=64, tile=32):
     print("phase 4 ok", flush=True)
 
 
+def _phase_clock(n, t0):
+    print(f"phase {n} wall {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def mcmc_scene(device, n_sources=64):
+    """bench_mcmc.py's scene, rendered on `device`."""
+    from celeste_jl_tpu_torch.synthetic import ais_bench_scene
+
+    return ais_bench_scene(n_sources, device=device)
+
+
+def k4_rows(scene, P, device, dtype, is_star, n_samples=10, seed=5):
+    """K4's arguments at the AIS shapes: every source of the scene on its
+    P x P tiles (bench_mcmc.py's radius 8), n_samples prior draws per
+    source of one model, as the AIS's first evaluation scores them."""
+    import torch
+
+    from celeste_jl_tpu_torch.mcmc import infer, log_prob
+    from celeste_jl_tpu_torch.vi.elbo import default_prior
+
+    images, catalog = scene
+    S = len(catalog)
+    tgt, _ = infer.chunk_target(catalog, images, list(range(S)), {},
+                                [8.0] * S, P, device=device, dtype=dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    prior = default_prior(torch.device(device), dtype)
+    sampler = (log_prob.sample_star_prior if is_star
+               else log_prob.sample_gal_prior)
+    th = sampler(gen, S * n_samples, prior)
+    src = torch.arange(S, device=device).repeat_interleave(n_samples)
+    return log_prob.fused_rows(log_prob.lanes(tgt, src), th, is_star)
+
+
+def k4_bound(args):
+    """K4's bound: ~12 flops per component per active pixel of each row
+    (the exps and logs not counted), ~8 per active pixel for the score;
+    the shared tiles, comps, meta, index and output moved once each."""
+    x, mask, iota, bg, comps, meta, idx = args
+    R, C, _ = comps.shape
+    act = mask.reshape(mask.shape[0], -1).sum(-1)[idx].sum()
+    nbytes = (4 * x.numel() + comps.numel() + meta.numel()) * 4 + R * 8
+    return bound(float(act) * (12 * C + 8), nbytes)
+
+
+def phase_new_kernels(scene, device="cuda", tiles=(32, 16, 64),
+                      n_samples=10, n_mats=1024):
+    """K4 against its twin at the AIS shapes, and the split sweep K2a+K2b
+    against its twin and against K2. Returns {name: record}."""
+    import torch
+
+    from celeste_jl_tpu_torch.ops import eigh, render
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    time_fn = ((lambda fn: timed_ms(fn, torch)) if device == "cuda"
+               else (lambda fn: float("nan")))
+    rec = {}
+    for dtype, tol in ((torch.float64, K4_F64_TOL),
+                       (torch.float32, K4_F32_TOL)):
+        for P in tiles:
+            for is_star in (True, False):
+                args = k4_rows(scene, P, device, dtype, is_star, n_samples)
+                got = render.mixture_poisson_ll(*args)
+                want = render.mixture_poisson_ll_plain(*args)
+                sync()
+                d = (got - want).double().abs()
+                err = float((d / want.double().abs().clamp(min=1e-30)).max())
+                R, C, _ = args[4].shape
+                msg = (f"K4 mixture_poisson_ll {str(dtype)[6:]} R={R} C={C} "
+                       f"P={P}: max rel err per row {err:.3g} (tol {tol:g})")
+                check(bool(torch.all(torch.isfinite(got))) and err < tol, msg)
+                if dtype == torch.float32:
+                    # which f32 route carries the difference: each against
+                    # the twin in f64 on the same (f32) inputs
+                    w64 = render.mixture_poisson_ll_plain(
+                        *(a.double() if a.is_floating_point() else a
+                          for a in args))
+                    e64 = lambda r: float(((r.double() - w64).abs()
+                                           / w64.abs().clamp(min=1e-30)).max())
+                    msg += (f"; vs f64: kernel {e64(got):.3g}, twin "
+                            f"{e64(want):.3g}")
+                if dtype == torch.float32 and P == tiles[0] and not is_star:
+                    ms = time_fn(lambda: render.mixture_poisson_ll(*args))
+                    plain_ms = time_fn(
+                        lambda: render.mixture_poisson_ll_plain(*args))
+                    rec["mixture_poisson_ll"] = dict(
+                        max_abs_err=float(d.max()), ms=ms, plain_ms=plain_ms,
+                        library_ms=None, **k4_bound(args))
+                    msg += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                print(msg, flush=True)
+
+    rng = np.random.default_rng(0)
+    H64 = wide_spectrum_batch(rng, n_mats)
+    w_ref = np.linalg.eigvalsh(H64)
+    for dtype in (torch.float64, torch.float32):
+        H = torch.as_tensor(H64, dtype=dtype, device=device)
+        eye = torch.eye(42, dtype=dtype, device=device).expand_as(H)
+        A1, cs = eigh.jacobi_sweep_a(H)
+        Q1 = eigh.jacobi_replay_q(eye, cs)
+        A2, cs2 = eigh.jacobi_sweep_a_plain(H)
+        Q2 = eigh.jacobi_replay_q_plain(eye, cs2)
+        A3, Q3 = eigh.jacobi_sweep(H, eye)
+        sync()
+        norm = torch.linalg.matrix_norm(H.double())[:, None, None]
+        err = lambda A, Q: max(float(((A1 - A).double().abs() / norm).max()),
+                               float((Q1 - Q).double().abs().max()))
+        e_plain, e_fused = err(A2, Q2), err(A3, Q3)
+        w, Q, sweeps = eigh.jacobi_eigh(H, tol=1e-6, max_sweeps=10,
+                                        sweep=eigh.jacobi_sweep_split)
+        w = w.double().cpu().numpy()
+        Qn = Q.double().cpu().numpy()
+        dw = np.max(np.abs(np.sort(w, -1) - w_ref))
+        orth = np.max(np.abs(np.einsum("bji,bjk->bik", Qn, Qn) - np.eye(42)))
+        resid = (np.max(np.abs(np.einsum("bij,bjk->bik", H64, Qn)
+                               - w[:, None, :] * Qn))
+                 / np.linalg.norm(H64[0]))
+        # f32 sweeps amplify rounding (phase 2): held through the
+        # eigensolver's bars only
+        tol = SPLIT_F64_TOL if dtype == torch.float64 else float("inf")
+        msg = (f"K2a+K2b split sweep {str(dtype)[6:]} B={n_mats} D=42: "
+               f"vs plain twin {e_plain:.3g}, vs K2 {e_fused:.3g} (tol "
+               f"{tol:g}); jacobi_eigh |dw| {dw:.3g} orth {orth:.3g} resid "
+               f"{resid:.3g} ({sweeps} sweeps)")
+        check(e_plain < tol and e_fused < tol and dw < EIGH_BARS["dw"]
+              and orth < EIGH_BARS["orth"] and resid < EIGH_BARS["resid"],
+              msg)
+        if dtype == torch.float32:
+            for name, fn, pfn, part, abs_err in (
+                    ("jacobi_sweep_a", lambda: eigh.jacobi_sweep_a(H),
+                     lambda: eigh.jacobi_sweep_a_plain(H), "a",
+                     max(float((A1 - A2).abs().max()),
+                         float((cs - cs2).abs().max()))),
+                    ("jacobi_replay_q", lambda: eigh.jacobi_replay_q(eye, cs),
+                     lambda: eigh.jacobi_replay_q_plain(eye, cs), "q",
+                     float((Q1 - eigh.jacobi_replay_q_plain(eye, cs))
+                           .abs().max()))):
+                ms, plain_ms = time_fn(fn), time_fn(pfn)
+                rec[name] = dict(max_abs_err=abs_err, ms=ms,
+                                 plain_ms=plain_ms, library_ms=None,
+                                 **sweep_bound(n_mats, 42, part))
+                msg += f"; {name} {ms:.3f} ms, plain {plain_ms:.3f} ms"
+        print(msg, flush=True)
+    print("phase 5 ok: K4, K2a, K2b agree with their plain twins", flush=True)
+    return rec
+
+
+def _coverage(results, catalog):
+    """Fraction of sources whose true r-flux and colors lie within 2
+    posterior standard deviations of the winning model's chain mean
+    (benchmark/bench_mcmc.py's calibration, in numpy)."""
+    fields = ("log_flux_r", "color_ug", "color_gr", "color_ri", "color_iz")
+    hits = {f: [] for f in fields}
+    for r, ce in zip(results, catalog):
+        chain = r["star_samples" if r["ave_pstar"] > 0.5 else "gal_samples"]
+        lnf = chain[:, :5]
+        est = np.column_stack([lnf[:, 2], lnf[:, 1] - lnf[:, 0],
+                               lnf[:, 2] - lnf[:, 1], lnf[:, 3] - lnf[:, 2],
+                               lnf[:, 4] - lnf[:, 3]])
+        tf = np.log(np.asarray(ce.star_fluxes if ce.is_star
+                               else ce.gal_fluxes))
+        truth = np.array([tf[2], tf[1] - tf[0], tf[2] - tf[1],
+                          tf[3] - tf[2], tf[4] - tf[3]])
+        mu, sd = est.mean(0), est.std(0, ddof=1)
+        for k, f in enumerate(fields):
+            if sd[k] > 0:
+                hits[f].append(abs(mu[k] - truth[k]) / sd[k])
+    return {f: float(np.mean(np.asarray(h) < 2.0)) if h else float("nan")
+            for f, h in hits.items()}
+
+
+def phase_mcmc(scene, device="cuda", ais=FULL_AIS, bars=True):
+    """The MCMC slice at full width through its entry point, f32."""
+    import torch
+
+    from celeste_jl_tpu_torch.mcmc.infer import run_ais_batched
+    from celeste_jl_tpu_torch.mcmc.slice import slicesample
+    from celeste_jl_tpu_torch.ops import render
+    from celeste_jl_tpu_torch.utils.config import Config
+
+    images, catalog = scene
+    S = len(catalog)
+    render.mixture_poisson_ll.launches = 0
+    slicesample.host_reads = 0
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_ais_batched(catalog, images, config=Config(min_radius_pix=8.0),
+                          seed=0, device=device, dtype=torch.float32, **ais)
+    wall = time.perf_counter() - t0
+    launches = {"mixture_poisson_ll": render.mixture_poisson_ll.launches}
+    reads = slicesample.host_reads
+
+    for k in ("star_lnZ", "gal_lnZ", "star_lnZ_bootstrap",
+              "gal_lnZ_bootstrap", "star_samples", "gal_samples",
+              "star_lls", "gal_lls", "ave_pstar"):
+        bad = [i for i, r in enumerate(res)
+               if not np.all(np.isfinite(r[k]))]
+        check(not bad, f"phase 6: non-finite {k} on sources {bad}")
+    n = ais["num_samples"]
+    T = ais["num_samples_per_chain"]
+    check(all(r["star_samples"].shape == (n * T, 7)
+              and r["gal_samples"].shape == (n * T, 11) for r in res),
+          "phase 6: chain shapes")
+    if device == "cuda":
+        check(launches["mixture_poisson_ll"] > 0, "phase 6: K4 never ran")
+    pstar = np.array([r["ave_pstar"] for r in res])
+    truth = np.array([ce.is_star for ce in catalog])
+    recall = float(np.mean(pstar[~truth] < 0.5))
+    star_side = float(np.mean(pstar[truth] > 0.5))
+    cov = _coverage(res, catalog)
+    sweeps = ais["num_temperatures"] - 1 + T
+    msg = (f"phase 6: {S} sources, AIS {ais['num_temperatures']} temps x "
+           f"{n} samples + {T}-step chains, f32: {wall:.3f} s = "
+           f"{S / wall:.4f} sources/s; K4 launches "
+           f"{launches['mixture_poisson_ll']}; host reads {reads} "
+           f"({reads / sweeps:.1f} per sweep, {reads / (11 * sweeps):.2f} "
+           f"per coordinate step); galaxy recall {recall:.4f}; stars with "
+           f"p(star) > 0.5 {star_side:.4f}; 2-sd coverage "
+           + ", ".join(f"{f} {c:.3f}" for f, c in cov.items()))
+    if bars:
+        check(recall == 1.0 and all(c >= COVERAGE_BAR for c in cov.values()),
+              msg + f" (bars: recall 1.0, coverage >= {COVERAGE_BAR})")
+    print(msg, flush=True)
+    print("phase 6 ok", flush=True)
+    return launches
+
+
+def _split_step(hists, outs, s, lanes):
+    """Where the two routes' chains of source s (its AIS `lanes`) first
+    differ: the AIS step, or the step of the posterior chain after it."""
+    import torch
+
+    for k, (a, b) in enumerate(zip(*hists)):
+        if not torch.equal(a[lanes], b[lanes]):
+            return f"AIS step {k + 1}"
+    for t in range(outs[0]["star_samples"].shape[2]):
+        if any(not torch.equal(outs[0][f][s, :, t], outs[1][f][s, :, t])
+               for f in ("star_samples", "gal_samples")):
+            return f"posterior chain step {t + 1}"
+    return "no step (the chains agree; only the lnZ sums differ)"
+
+
+def phase_mcmc_routes(scene, device="cuda", n_sources=8, ais=ROUTE_AIS):
+    """K4 against its twin on the AIS program, f64, same seed."""
+    import torch
+
+    from celeste_jl_tpu_torch.mcmc import infer
+    from celeste_jl_tpu_torch.parallel.common import _tile_for_radius
+    from celeste_jl_tpu_torch.parallel.state import find_neighbors, patch_radii
+    from celeste_jl_tpu_torch.utils.config import Config
+
+    images, catalog = scene
+    targets = list(range(n_sources))
+    radii = patch_radii(catalog, images, Config(min_radius_pix=8.0))
+    tgt, _ = infer.chunk_target(
+        catalog, images, targets, find_neighbors(catalog, radii, images),
+        radii, max(_tile_for_radius(radii[s]) for s in targets),
+        device=device, dtype=torch.float64)
+    outs, hists = [], []
+    for plain in (False, True):
+        gen = torch.Generator(device=device).manual_seed(0)
+        hists.append([])
+        outs.append(infer._ais_both_models(gen, tgt, plain=plain,
+                                           history=hists[-1], **ais))
+    k, p = outs
+    rel = lambda key: ((k[key] - p[key]).abs() / p[key].abs()).cpu().numpy()
+    r_star, r_gal = rel("star_lnZ"), rel("gal_lnZ")
+    same_side = ((k["ave_pstar"] > 0.5) == (p["ave_pstar"] > 0.5)).cpu()
+    close = (r_star <= 1e-6) & (r_gal <= 1e-6)
+    S, n = n_sources, ais["num_samples"]
+    for s in range(S):
+        if not (close[s] and same_side[s]):
+            lanes = torch.cat([torch.arange(s * n, s * n + n),
+                               torch.arange(S * n + s * n, S * n + s * n + n)])
+            print(f"phase 7: source {s} departs (lnZ rel star {r_star[s]:.3g}"
+                  f" gal {r_gal[s]:.3g}); chains split at "
+                  f"{_split_step(hists, outs, s, lanes.to(device))}",
+                  flush=True)
+    msg = (f"phase 7: {S} sources f64, kernel vs twin: same side on "
+           f"{int(same_side.sum())}/{S}, lnZ within 1e-6 on "
+           f"{int(close.sum())}/{S}; max rel star {r_star.max():.3g}, gal "
+           f"{r_gal.max():.3g}")
+    check(bool(same_side.all()) and int(close.sum()) >= S - 1,
+          msg + f" (bars: all sides, >= {S - 1} within 1e-6)")
+    print(msg, flush=True)
+    print("phase 7 ok", flush=True)
+
+
+def phase_split_fit(device="cuda", n_sources=256, tile=32):
+    """The fit with the split sweep (K2a + K2b) against the fused one."""
+    import torch
+
+    from celeste_jl_tpu_torch.ops import eigh
+    from celeste_jl_tpu_torch.synthetic import synthetic_patch_batch
+    from celeste_jl_tpu_torch.vi.optimize import fit_sources_compacted
+
+    _, vp0s, patches = synthetic_patch_batch(n_sources, tile=tile, seed=1,
+                                             dtype=np.float64, device=device)
+    vp0 = torch.as_tensor(vp0s, device=device)
+    p = patches.to(device, torch.float64)
+    cfg = bench_config()
+    rf = fit_sources_compacted(vp0, p, config=cfg)
+    counters = {"jacobi_sweep_a": eigh.jacobi_sweep_a,
+                "jacobi_replay_q": eigh.jacobi_replay_q}
+    for fn in counters.values():
+        fn.launches = 0
+    rs = fit_sources_compacted(vp0, p, config=cfg._replace(eigh_fused=False))
+    es = rs.elbo.cpu().numpy()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    flips = int(np.sum((rs.vp[:, 26].cpu().numpy() > 0.5)
+                       != (rf.vp[:, 26].cpu().numpy() > 0.5)))
+    same_iters = bool(torch.equal(rs.iters, rf.iters))
+    ef = rf.elbo.cpu().numpy()
+    rel = float(np.max(np.abs(es - ef) / np.abs(ef)))
+    msg = (f"phase 8: {n_sources} sources f64, split vs fused sweep: "
+           f"{flips} flips, identical iterations {same_iters}, ELBO max rel "
+           f"diff {rel:.3g}; launches {launches}")
+    check(flips == 0 and same_iters and rel <= SPLIT_ELBO_TOL
+          and np.all(np.isfinite(es)),
+          msg + f" (bars: 0 flips, same iterations, <= {SPLIT_ELBO_TOL:g})")
+    if device == "cuda":
+        check(all(v > 0 for v in launches.values()),
+              f"phase 8: a split kernel never launched: {launches}")
+    print(msg, flush=True)
+    print("phase 8 ok", flush=True)
+    return launches
+
+
 SOURCES = {
     "refresh": ("celeste_jl_tpu_torch/csrc/refresh.cu",
                 "celeste_jl_tpu/ops/pallas_refresh.py:186"),
@@ -388,6 +780,12 @@ SOURCES = {
                      "celeste_jl_tpu/ops/pallas_eigh.py:220"),
     "tr_subproblem": ("celeste_jl_tpu_torch/csrc/tr_subproblem.cu",
                       "celeste_jl_tpu/ops/pallas_tr.py:36"),
+    "mixture_poisson_ll": ("celeste_jl_tpu_torch/csrc/render.cu",
+                           "celeste_jl_tpu/ops/pallas_render.py:29"),
+    "jacobi_sweep_a": ("celeste_jl_tpu_torch/csrc/jacobi_sweep_split.cu",
+                       "celeste_jl_tpu/ops/pallas_eigh.py:164"),
+    "jacobi_replay_q": ("celeste_jl_tpu_torch/csrc/jacobi_sweep_split.cu",
+                        "celeste_jl_tpu/ops/pallas_eigh.py:202"),
 }
 
 
@@ -395,10 +793,31 @@ def main():
     sys.path.insert(0, ROOT)
     import torch
     try:
+        t0 = time.perf_counter()
         phase_setup()
+        _phase_clock(1, t0)
+        t0 = time.perf_counter()
         rec = phase_kernels()
+        _phase_clock(2, t0)
+        t0 = time.perf_counter()
         launches = phase_slice()
+        _phase_clock(3, t0)
+        t0 = time.perf_counter()
         phase_compare()
+        _phase_clock(4, t0)
+        t0 = time.perf_counter()
+        scene = mcmc_scene("cuda")
+        rec.update(phase_new_kernels(scene))
+        _phase_clock(5, t0)
+        t0 = time.perf_counter()
+        launches.update(phase_mcmc(scene))
+        _phase_clock(6, t0)
+        t0 = time.perf_counter()
+        phase_mcmc_routes(scene)
+        _phase_clock(7, t0)
+        t0 = time.perf_counter()
+        launches.update(phase_split_fit())
+        _phase_clock(8, t0)
     except PhaseError as e:
         print(f"FAILED: {e}", flush=True)
         return 1

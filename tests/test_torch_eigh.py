@@ -1,7 +1,8 @@
-"""The port's parallel-Jacobi eigensolver (ops/eigh.py): the plain sweep
-against the JAX package's Pallas sweep (interpret mode), jacobi_eigh at the
-bars of tests/test_pallas_eigh.py:46-54, and the same rows at two batch
-sizes. The CUDA sweep is held to the plain one in test_torch_kernels.py."""
+"""The port's parallel-Jacobi eigensolver (ops/eigh.py): the plain sweep,
+fused and split, against the JAX package's Pallas sweeps (interpret mode),
+jacobi_eigh at the bars of tests/test_pallas_eigh.py:46-54, the same rows
+at two batch sizes, and a fit through the split sweep. The CUDA sweeps are
+held to the plain ones in test_torch_kernels.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -115,3 +116,61 @@ def test_warm_start_and_padding():
                                atol=1e-8 * np.abs(H).max())
     assert np.all(w[:, 41] == Hp[:, 41, 41].numpy())
 
+
+
+def test_split_sweep_twin_matches_fused_and_jax():
+    """The split sweep's plain twin (A phase, then the Q replay of its
+    (c, s) log) equals the fused sweep, and JAX's split route
+    (CELESTE_EIGH_FUSED=0: _sweep_a_kernel + _sweep_q_kernel, interpret
+    mode). f64, to 1e-12 of ||H||: the same rotations in the same order."""
+    import os
+
+    batch = _wide_spectrum_batch(np.random.default_rng(2), 8)
+    H = batch.astype(np.float64)
+    eye = np.broadcast_to(np.eye(D), H.shape).copy()
+    norm = np.linalg.norm(H, axis=(1, 2))[:, None, None]
+    A_s, cs = eigh.jacobi_sweep_a_plain(torch.tensor(H))
+    assert cs.shape == (8, D - 1, 2, D // 2)
+    Q_s = eigh.jacobi_replay_q_plain(torch.tensor(eye), cs)
+    A_f, Q_f = eigh.jacobi_sweep_plain(torch.tensor(H), torch.tensor(eye))
+    assert np.max(np.abs(A_s.numpy() - A_f.numpy()) / norm) < 1e-12
+    assert np.max(np.abs(Q_s.numpy() - Q_f.numpy())) < 1e-12
+    # the split route is chosen while _one_sweep is traced
+    prev = os.environ.get("CELESTE_EIGH_FUSED")
+    os.environ["CELESTE_EIGH_FUSED"] = "0"
+    _one_sweep.clear_cache()
+    try:
+        Aj, Qj = _one_sweep(jnp.asarray(H), jnp.asarray(eye), interpret=True)
+    finally:
+        if prev is None:
+            os.environ.pop("CELESTE_EIGH_FUSED")
+        else:
+            os.environ["CELESTE_EIGH_FUSED"] = prev
+        _one_sweep.clear_cache()
+    assert np.max(np.abs(A_s.numpy() - np.asarray(Aj)) / norm) < 1e-12
+    assert np.max(np.abs(Q_s.numpy() - np.asarray(Qj))) < 1e-12
+
+
+def test_fit_with_split_sweep_matches_fused(monkeypatch):
+    """NewtonConfig.eigh_fused=False (the split sweep) fits as the fused
+    sweep does: the same iterations per lane, the same ELBOs (f64)."""
+    from celeste_jl_tpu_torch.ops.newton import NewtonConfig
+    from celeste_jl_tpu_torch.synthetic import synthetic_patch_batch
+    from celeste_jl_tpu_torch.vi.optimize import fit_sources
+
+    _, vp0s, p = synthetic_patch_batch(2, tile=16, seed=4, dtype=np.float64,
+                                       device="cpu")
+    vp = torch.tensor(vp0s)
+    cfg = NewtonConfig(tr_solver="pjacobi", jacobi_max_sweeps=4,
+                       tr_kernel="pallas", refresh_kernel="pallas",
+                       max_iters=3)
+    fused = fit_sources(vp, p, config=cfg)
+    calls = []
+    a_phase = eigh.jacobi_sweep_a_plain
+    monkeypatch.setattr(eigh, "jacobi_sweep_a_plain",
+                        lambda A: calls.append(1) or a_phase(A))
+    split = fit_sources(vp, p, config=cfg._replace(eigh_fused=False))
+    assert calls                      # the fit went through the split sweep
+    assert torch.equal(fused.iters, split.iters)
+    np.testing.assert_allclose(split.elbo.numpy(), fused.elbo.numpy(),
+                               rtol=1e-12)

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from celeste_jl_tpu_torch.ops import eigh, refresh, tr
+from celeste_jl_tpu_torch.mcmc import log_prob
+from celeste_jl_tpu_torch.ops import eigh, refresh, render, tr
 from celeste_jl_tpu_torch.ops.bijectors import enforce, to_bound, to_free
 from celeste_jl_tpu_torch.ops.newton import NewtonConfig
 from celeste_jl_tpu_torch.synthetic import synthetic_patch_batch
@@ -90,6 +91,78 @@ def test_tr_kernel_matches_plain(cuda):
     torch.testing.assert_close(pred_k, pred_p, rtol=1e-9, atol=1e-9)
 
 
+def _spectrum_batch(device, B=64, seed=1):
+    rng = np.random.default_rng(seed)
+    V, _ = np.linalg.qr(rng.standard_normal((42, 42)))
+    H = (V * np.logspace(-5, 3, 42)) @ V.T
+    H = H + 1e-3 * rng.standard_normal((B, 42, 42))
+    return torch.tensor(0.5 * (H + H.transpose(0, 2, 1)), device=device)
+
+
+def test_split_sweep_kernels_match_plain_and_fused(cuda):
+    A = _spectrum_batch(cuda)
+    Q = torch.eye(42, dtype=F64, device=cuda).expand_as(A)
+    na, nq = eigh.jacobi_sweep_a.launches, eigh.jacobi_replay_q.launches
+    Ak, Qk = eigh.jacobi_sweep_split(A, Q)
+    assert (eigh.jacobi_sweep_a.launches, eigh.jacobi_replay_q.launches) == (
+        na + 1, nq + 1)
+    norm = torch.linalg.matrix_norm(A)[:, None, None]
+    for Ap, Qp in (eigh.jacobi_sweep_split_plain(A, Q),
+                   eigh.jacobi_sweep(A, Q)):
+        assert float(((Ak - Ap).abs() / norm).max()) < 1e-11
+        assert float((Qk - Qp).abs().max()) < 1e-11
+
+
+@pytest.mark.parametrize("P", [16, 32, 64])
+@pytest.mark.parametrize("is_star", [True, False])
+def test_render_kernel_matches_plain(cuda, P, is_star):
+    """K4 on 4 sources x 3 AIS lanes of prior draws, f64, per row."""
+    from celeste_jl_tpu_torch.mcmc.infer import chunk_target
+    from celeste_jl_tpu_torch.synthetic import ais_bench_scene
+    from celeste_jl_tpu_torch.vi.elbo import default_prior
+
+    images, cat = ais_bench_scene(4, device=cuda)
+    tgt, _ = chunk_target(cat, images, list(range(4)), {}, [8.0] * 4, P,
+                          device=cuda, dtype=F64)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    sample = (log_prob.sample_star_prior if is_star
+              else log_prob.sample_gal_prior)
+    th = sample(gen, 12, default_prior(cuda, F64))
+    src = torch.arange(4, device=cuda).repeat_interleave(3)
+    args = log_prob.fused_rows(log_prob.lanes(tgt, src), th, is_star)
+    n0 = render.mixture_poisson_ll.launches
+    got = render.mixture_poisson_ll(*args)
+    want = render.mixture_poisson_ll_plain(*args)
+    assert render.mixture_poisson_ll.launches == n0 + 1
+    assert float(((got - want).abs() / want.abs()).max()) < 1e-10
+
+
+def test_render_kernel_many_components(cuda):
+    """C = 100 > the kernel's 64-component chunk, tiles far from the image
+    origin (offsets ~400 px), f64, per row."""
+    rng = np.random.default_rng(4)
+    R, C, P = 6, 100, 32
+    t = lambda a: torch.tensor(a, device=cuda)
+    off = rng.integers(380, 420, (R, 2)).astype(np.float64)
+    means = off[:, None, :] + 1.0 + P / 2 + rng.normal(0.0, 2.0, (R, C, 2))
+    a, d = rng.uniform(0.5, 6.0, (2, R, C))
+    b = rng.uniform(-0.4, 0.4, (R, C)) * np.sqrt(a * d)
+    covs = np.stack([np.stack([a, b], -1), np.stack([b, d], -1)], -2)
+    comps = render.pack_mixture(t(means), t(covs),
+                                t(rng.dirichlet(np.ones(C), R)))
+    meta = t(np.stack([off[:, 0] + 1.0, off[:, 1] + 1.0,
+                       rng.uniform(5.0, 50.0, R), np.zeros(R)], 1))
+    mask = np.zeros((R, P, P))
+    mask[:, 8:25, 8:25] = 1.0
+    iota = rng.uniform(800.0, 1200.0, (R, P, P))
+    bg = rng.uniform(0.05, 0.15, (R, P, P))
+    pixels = rng.poisson(iota * (bg + 0.3)) * mask
+    args = (t(pixels), t(mask), t(iota), t(bg), comps, meta)
+    got = render.mixture_poisson_ll(*args)
+    want = render.mixture_poisson_ll_plain(*args)
+    assert float(((got - want).abs() / want.abs()).max()) < 1e-10
+
+
 def test_wrappers_reject_what_kernels_do_not_take(cuda):
     x = torch.zeros(4, 42, dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError):
@@ -97,6 +170,17 @@ def test_wrappers_reject_what_kernels_do_not_take(cuda):
     A = torch.zeros(2, 41, 41, dtype=F64, device=cuda)
     with pytest.raises(ValueError):
         eigh.jacobi_sweep(A, A)
+    with pytest.raises(ValueError):
+        eigh.jacobi_sweep_a(A)
+    t = torch.zeros(3, 8, 8, dtype=F64, device=cuda)
+    comps = torch.zeros(4, 2, 6, dtype=F64, device=cuda)
+    meta = torch.zeros(4, 4, dtype=F64, device=cuda)
+    with pytest.raises(ValueError):     # 4 rows, 3 tiles, no index
+        render.mixture_poisson_ll(t, t, t, t, comps, meta)
+    # an index past the tiles: that row is NaN, the others are scored
+    out = render.mixture_poisson_ll(t, t, t, t, comps, meta,
+                                    torch.tensor([0, 3, 2, -1], device=cuda))
+    assert torch.isnan(out).tolist() == [False, True, False, True]
 
 
 def test_kernel_fit_matches_plain_fit(cuda):
