@@ -66,7 +66,7 @@ SPLIT_ELBO_TOL = 1e-9
 FULL_AIS = dict(num_temperatures=50, num_samples=10, num_samples_per_chain=25)
 ROUTE_AIS = dict(num_temperatures=20, num_samples=4, num_samples_per_chain=10)
 
-# published peaks of one H100 SXM (on-chip-measurement guide): float32
+# published peaks of one H100 SXM (NVIDIA's datasheet): float32
 # outside the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
