@@ -7,7 +7,7 @@ each AIS draw is extended by a slice-sampling chain. `run_ais_batched`
 runs all the sources of a chunk as lanes of one batched program: S
 sources x num_samples AIS runs per model, star lanes (D = 7) beside galaxy
 lanes (D = 11), stepped together by one masked slice sampler, with one K4
-launch per model per evaluation (mcmc/log_prob.py).
+launch per evaluation for both models (mcmc/log_prob.blocks_loglike).
 
 Entry points default to device="cuda" and float32, as the TPU bench runs;
 they take a seed (a torch.Generator on the device is seeded from it) and
@@ -27,9 +27,10 @@ from ..models.patches import make_patch_for_source, make_patches_batched
 from ..utils.config import Config
 from ..vi.elbo import default_prior
 from .ais import ais, bootstrap_lnZ, log_mean_exp, sigmoid_schedule
-from .log_prob import (NUM_GAL_PARAMS, NUM_STAR_PARAMS, _render, fused_tiles,
-                       gal_params_from_catalog, lane_loglike, lane_logprior,
-                       lanes, logpost_from_terms, make_source_target,
+from .log_prob import (NUM_GAL_PARAMS, NUM_STAR_PARAMS, _render,
+                       blocks_loglike, fused_tiles, gal_params_from_catalog,
+                       lane_blocks, lane_logprior, logpost_from_terms,
+                       make_source_target,
                        sample_gal_prior, sample_star_prior, stack_targets,
                        star_params_from_catalog, uniform_to_world)
 from .slice import slicesample_chain
@@ -45,32 +46,31 @@ def _evaluator(tgt, blocks, plain=False):
     """evaluate(x) -> (loglike, logprior) over lanes made of `blocks`, a
     list of (is_star, src) in lane order, each block's lanes padded to the
     width of x. evaluate also takes m stacked copies of the lanes, (m L, D),
-    as the step-out scores both ends at once; one K4 launch per block (its
-    plain twin if `plain`). Each block's Lanes are gathered once per m."""
+    as the step-out scores both ends at once; one K4 launch scores every
+    block (its plain twin if `plain`, one call per block). The blocks'
+    Lanes and K4's row plan are gathered once per m."""
     tiles = fused_tiles(tgt)
     prior = default_prior(tgt.pixels.device, tgt.pixels.dtype)
     L = sum(len(src) for _, src in blocks)
     gathered = {}
 
-    def block_lanes(k, m):
-        if (k, m) not in gathered:
-            gathered[k, m] = lanes(tgt, blocks[k][1].repeat(m), tiles)
-        return gathered[k, m]
-
     def evaluate(x):
         m = x.shape[0] // L
+        if m not in gathered:
+            gathered[m] = lane_blocks(
+                tgt, [(s, src.repeat(m)) for s, src in blocks], tiles)
+        lb = gathered[m]
         x = x.reshape(m, L, x.shape[-1])
-        lls, lps, i0 = [], [], 0
-        for k, (is_star, src) in enumerate(blocks):
+        ths, i0 = [], 0
+        for is_star, src in blocks:
             n, D = len(src), NUM_STAR_PARAMS if is_star else NUM_GAL_PARAMS
-            th = x[:, i0:i0 + n, :D].reshape(m * n, D)
-            ln = block_lanes(k, m)
-            lls.append(lane_loglike(th, is_star, ln, plain).reshape(m, n))
-            lps.append(lane_logprior(th, is_star, ln.log_area,
-                                     prior).reshape(m, n))
+            ths.append(x[:, i0:i0 + n, :D].reshape(m * n, D))
             i0 += n
-        return (torch.cat(lls, dim=1).reshape(-1),
-                torch.cat(lps, dim=1).reshape(-1))
+        lls = blocks_loglike(ths, lb, plain)
+        lps = [lane_logprior(th, s, ln.log_area, prior)
+               for th, s, ln in zip(ths, lb.is_star, lb.lanes)]
+        return (torch.cat([v.reshape(m, -1) for v in lls], dim=1).reshape(-1),
+                torch.cat([v.reshape(m, -1) for v in lps], dim=1).reshape(-1))
 
     return evaluate
 

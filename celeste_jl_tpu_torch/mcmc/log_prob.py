@@ -5,8 +5,9 @@ Every function is written over an explicit lane axis: `th` is (L, D) and
 lane l scores source src[l] of a SourceTarget whose fields carry a leading
 source axis S (src=None: L == S, lane l is source l). The AIS runs
 S sources x samples lanes per model, and one K4 launch
-(ops/render.mixture_poisson_ll) scores all the lanes of one model and all
-their bands, the rows of one source sharing its tiles.
+(ops/render.mixture_poisson_ll_ragged, through `blocks_loglike`) scores
+all the lanes of both models and all their bands, the rows of one source
+sharing its tiles.
 
 Parameter vectors (flat; slice sampling needs no bijectors):
   star   th (7,)  = [lnfluxes(5), u(2)]
@@ -28,8 +29,10 @@ import torch
 from ..models.bvn import get_bvn_cov
 from ..models.fsm import (galaxy_density_grid, galaxy_prototypes,
                           linear_world_to_pix, star_density_grid)
+from ..models.params import GAL_ETA
 from ..models.priors import prior as _prior_params
 from ..models.psf import psf_alphas, psf_covs, psf_mus
+from ..ops import render
 from ..ops.render import (mixture_poisson_ll, mixture_poisson_ll_plain,
                           pack_mixture)
 from ..vi.elbo import PriorConstants, default_prior
@@ -146,12 +149,11 @@ def _render(tgt: SourceTarget, pos_world, fluxes, shape=None, src=None):
 
 
 class FusedTiles(NamedTuple):
-    """K4's per-source inputs, made once per target: tiles (S*B, P, P) and
-    the parameter-free lgamma(x + 1) sum per source (S,)."""
-    x: torch.Tensor
-    maskf: torch.Tensor
-    iota: torch.Tensor
-    bg: torch.Tensor
+    """K4's per-source inputs, made once per target: the tiles (S*B, P, P)
+    with their active-pixel lists (ops/render.ActiveTiles; the masks are
+    fixed for a whole AIS run) and the parameter-free lgamma(x + 1) sum
+    per source (S,)."""
+    k4: render.ActiveTiles
     lgam: torch.Tensor
 
 
@@ -162,8 +164,9 @@ def fused_tiles(tgt: SourceTarget):
                      dim=(-3, -2, -1))
     flat = lambda t: t.reshape((-1,) + t.shape[-2:]).contiguous()
     bg = torch.broadcast_to(tgt.bg_nmgy, tgt.pixels.shape)
-    return FusedTiles(flat(x), flat(mask.to(tgt.pixels.dtype)),
-                      flat(tgt.iota), flat(bg), lgam)
+    return FusedTiles(render.active_tiles(
+        flat(x), flat(mask.to(tgt.pixels.dtype)), flat(tgt.iota), flat(bg)),
+        lgam)
 
 
 class Lanes(NamedTuple):
@@ -234,19 +237,32 @@ def _pack_comps(ln: Lanes, pos_world, shape=None):
     return pack_mixture(means, covs, w)
 
 
-def fused_rows(ln: Lanes, th, is_star):
-    """K4's arguments for the lanes th (L, D) of one model: the shared
-    tiles, comps (L B, C, 6), meta (L B, 4) and the row -> tile index
-    (L B,), in the order `mixture_poisson_ll` takes them."""
+def n_components(ln: Lanes, is_star):
+    """K4's components per row of a model: the PSF's K for a star, K times
+    the 14 profile components for a galaxy."""
+    K = ln.psf_a.shape[-1]
+    return K if is_star else K * len(GAL_ETA)
+
+
+def row_inputs(ln: Lanes, th, is_star):
+    """K4's per-row inputs of the lanes th (L, D) of one model: comps
+    (L B, C, 6) and meta (L B, 4)."""
     fluxes = torch.exp(torch.clamp(th[:, :5], max=80.0))
     pos = ln.lo + ln.span * th[:, 5:7]
     comps = _pack_comps(ln, pos, None if is_star else th[:, 7:11])
     L, B, C, _ = comps.shape
     meta = torch.cat([ln.off1, fluxes[..., None],
                       torch.zeros_like(fluxes)[..., None]], dim=-1)
-    t = ln.tiles
-    return (t.x, t.maskf, t.iota, t.bg, comps.reshape(L * B, C, 6),
-            meta.reshape(L * B, 4), ln.tile_index)
+    return comps.reshape(L * B, C, 6), meta.reshape(L * B, 4)
+
+
+def fused_rows(ln: Lanes, th, is_star):
+    """K4's arguments for the lanes th (L, D) of one model: the shared
+    tiles, comps (L B, C, 6), meta (L B, 4) and the row -> tile index
+    (L B,), in the order `mixture_poisson_ll` takes them."""
+    t = ln.tiles.k4
+    return (t.pixels, t.mask, t.iota, t.bg, *row_inputs(ln, th, is_star),
+            ln.tile_index)
 
 
 def lane_loglike(th, is_star, ln: Lanes, plain=False):
@@ -256,6 +272,45 @@ def lane_loglike(th, is_star, ln: Lanes, plain=False):
     ll = (mixture_poisson_ll_plain if plain else mixture_poisson_ll)(
         *fused_rows(ln, th, is_star))
     return torch.sum(ll.reshape(th.shape[0], -1), dim=-1) - ln.lgam
+
+
+class LaneBlocks(NamedTuple):
+    """Blocks of lanes, one model each, that one K4 launch scores: each
+    block's Lanes, and the launch's row plan (ops/render.RowPlan) over the
+    blocks' (lane, band) rows in block order."""
+    is_star: tuple
+    lanes: tuple
+    plan: render.RowPlan
+
+
+def lane_blocks(tgt: SourceTarget, blocks, tiles=None):
+    """The LaneBlocks of `blocks`, a list of (is_star, src (L_k,)) of tgt;
+    `tiles`, fused_tiles(tgt), may be passed to share it."""
+    tiles = tiles if tiles is not None else fused_tiles(tgt)
+    is_star = tuple(bool(s) for s, _ in blocks)
+    lns = tuple(lanes(tgt, src, tiles) for _, src in blocks)
+    plan = render.row_plan(
+        tiles.k4, torch.cat([ln.tile_index for ln in lns]),
+        tuple((ln.tile_index.numel(), n_components(ln, s))
+              for ln, s in zip(lns, is_star)))
+    return LaneBlocks(is_star, lns, plan)
+
+
+def blocks_loglike(ths, lb: LaneBlocks, plain=False):
+    """Render + Poisson score of every lane and band of every block in one
+    K4 launch (its plain twin if `plain`, on any device: one call per
+    block), lgamma terms subtracted: a (L_k,) per block, ths[k] (L_k, D_k)
+    being block k's lanes."""
+    rows = [row_inputs(ln, th, s)
+            for th, s, ln in zip(ths, lb.is_star, lb.lanes)]
+    comps = torch.cat([c.reshape(-1, 6) for c, _ in rows])
+    meta = torch.cat([m for _, m in rows])
+    score = (render.mixture_poisson_ll_ragged_plain if plain
+             else render.mixture_poisson_ll_ragged)
+    ll = score(lb.lanes[0].tiles.k4, lb.plan, comps, meta)
+    return [torch.sum(part.reshape(th.shape[0], -1), dim=-1) - ln.lgam
+            for th, ln, part in zip(ths, lb.lanes,
+                                    ll.split([m.shape[0] for _, m in rows]))]
 
 
 def star_loglike(th, tgt: SourceTarget, src=None, tiles=None):

@@ -59,7 +59,7 @@ def main(argv=None):
         wall = time.perf_counter() - t0
     sweeps = a.temps - 1 + a.chain
     launches = render.mixture_poisson_ll.launches
-    evals = launches / 2                      # one K4 launch per model
+    evals = launches                # one K4 launch scores both models
     events = prof.key_averages()
     n_ops = sum(e.count for e in events if e.key.startswith("aten::"))
     # device-side events only (kernels, copies): an operator's self device

@@ -11,6 +11,8 @@ nothing: the CPU tests import every module on machines without nvcc.
 Each entry point is `celeste_<kernel>_<f32|f64>(pointers..., ints...,
 stream)` and returns the launch's cudaGetLastError() as an int. Pointer
 arguments are tensors of the kernel's float type, or int32 index tensors.
+`celeste_<kernel>_attrs_<f32|f64>` report a redesigned kernel's registers,
+local memory, shared memory and resident blocks (`kernel_attrs`).
 """
 
 import ctypes
@@ -30,8 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> argument types of its C entry point (the stream comes last)
 ENTRY_POINTS = {
-    # comp, rowp, pxf, m15, red | G, C, ks, N, cols | stream
-    "refresh": [_P] * 5 + [_I] * 5 + [_P],
+    # mu, lv, z, pch, cl4, off, pixels, mask, iota, a0, b0, m15, red |
+    # G, C, ks, N, cols | stream
+    "refresh": [_P] * 13 + [_I] * 5 + [_P],
     # A, Q, A_out, Q_out | B, D | stream
     "jacobi_sweep": [_P] * 4 + [_I] * 2 + [_P],
     # gq, w, delta, p, pred | B, D, iters | stream
@@ -40,9 +43,12 @@ ENTRY_POINTS = {
     "jacobi_sweep_a": [_P] * 3 + [_I] * 2 + [_P],
     # Q, cs_log, Q_out | B, D | stream
     "jacobi_replay_q": [_P] * 3 + [_I] * 2 + [_P],
-    # comps, meta, pixels, mask, iota, bg, tile_index, out | R, C, P, T |
-    # stream
-    "mixture_poisson_ll": [_P] * 8 + [_I] * 4 + [_P],
+    # comps, comp_ptr, meta, tile_ptr, pos, x, iota, bg, order, work, out |
+    # n_work, warps | stream
+    "mixture_poisson_ll": [_P] * 11 + [_I] * 2 + [_P],
+    # the kernels' attributes (`kernel_attrs`): C or warps | int[4]
+    "refresh_attrs": [_I, _P],
+    "mixture_poisson_ll_attrs": [_I, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -159,3 +165,36 @@ def launch(name, dtype, *args):
     if err:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.celeste_error_string(err).decode()}")
+
+
+def kernel_attrs(name, dtype, arg):
+    """What the card reports for kernel `name` ("refresh" with arg = C,
+    "mixture_poisson_ll" with arg = warps a block) in `dtype`: registers a
+    thread, local memory a thread (stack and spills, bytes), shared memory
+    a block (bytes) and resident blocks per SM at that configuration."""
+    out = (ctypes.c_int * 4)()
+    lib = library()
+    fn = getattr(lib, f"celeste_{name}_attrs_{_SUFFIX[dtype]}")
+    err = fn(int(arg), out)
+    if err:
+        raise RuntimeError(f"{name} attributes: "
+                           f"{lib.celeste_error_string(err).decode()}")
+    return dict(registers=out[0], local_bytes=out[1], shared_bytes=out[2],
+                blocks_per_sm=out[3])
+
+
+def ptxas_lines(kernel):
+    """nvcc's -Xptxas -v report for the entry functions whose mangled name
+    holds `kernel`: one line per compiled instance (stack, spills,
+    registers, shared memory)."""
+    with open(build() + ".ptxas.txt") as f:
+        lines = f.read().splitlines()
+    out, keep = [], False
+    for line in lines:
+        if "Compiling entry function" in line:
+            keep = kernel in line
+            if keep:
+                out.append(line.split("'")[1] + ":")
+        elif keep and ("registers" in line or "spill" in line):
+            out[-1] += " " + line.split(" : ", 1)[-1].strip()
+    return out

@@ -168,8 +168,21 @@ def pixel_terms_plain(mu, lv, z, pch, cl4, off, pixels, mask, iota, a0, b0,
 def pixel_terms(mu, lv, z, pch, cl4, off, pixels, mask, iota, a0, b0,
                 *, ks, pdims):
     """The refresh pixel pass, same contract as `pixel_terms_plain`:
-    csrc/refresh.cu on CUDA tensors (f32 or f64), the plain twin on CPU
-    tensors. Anything else raises."""
+    csrc/refresh.cu on CUDA tensors (f32 or f64, any tile up to 32767
+    pixels a side), the plain twin on CPU tensors. Anything else raises.
+
+    The kernel visits only the pixels with mask > 0 and skips the
+    structural zeros of the chain coefficients pch that
+    `band_pixel_rows` builds (models/mixture_derivs): star components
+    (the first ks) feed theta rows 0, 1 through b = 1, 2 only; galaxy
+    components rows 0, 1 through b = 1, 2, row 2 through b = 0, rows 3..5
+    through b = 0, 3, 4, 5. Other pch entries must be 0.
+
+    Tests: the twin against the JAX package on the CPU in
+    tests/test_torch_refresh.py (with the chain coefficients' zero
+    pattern); the kernel against the twin on a CUDA card in
+    tests/test_torch_kernels.py (`python -m pytest --noconftest -p
+    no:cacheprovider tests/test_torch_kernels.py -m cuda`)."""
     dev = mu.device
     if dev.type == "cpu":
         return pixel_terms_plain(mu, lv, z, pch, cl4, off, pixels, mask,
@@ -189,18 +202,14 @@ def pixel_terms(mu, lv, z, pch, cl4, off, pixels, mask, iota, a0, b0,
         if tuple(t.shape) != shape or t.device != dev:
             raise ValueError(f"pixel_terms: {name} {tuple(t.shape)} on "
                              f"{t.device}, expected {shape} on {dev}")
-    # Pack: per-component scalars (G, C, 42), per-row scalars (G, 6) and
-    # the five pixel fields (G, 5, N), all contiguous.
-    comp = torch.cat([mu, lv, z[..., None], pch.reshape(G, C, 36)],
-                     dim=-1).to(dtype).contiguous()
-    rowp = torch.cat([cl4.to(dtype), off.to(dtype)], dim=-1).contiguous()
-    pxf = torch.stack([pixels, mask.to(dtype), iota.to(dtype),
-                       a0.to(dtype), b0.to(dtype)], dim=1).contiguous()
+    # every operand as it is (a copy only if not contiguous or of another
+    # type): the kernel reads its rows where they lie
+    ops = [t.to(dtype).contiguous() for t in (mu, lv, z, pch, cl4, off, pixels,
+                                              mask, iota, a0, b0)]
     m15 = torch.empty((G, C, 15), dtype=dtype, device=dev)
     red = torch.empty((G, NRED), dtype=dtype, device=dev)
     if G:
-        _build.launch("refresh", dtype, comp, rowp, pxf, m15, red,
-                      G, C, ks, N, cols)
+        _build.launch("refresh", dtype, *ops, m15, red, G, C, ks, N, cols)
         pixel_terms.launches += 1
     return (red[:, 0], m15, red[:, 1:37].reshape(G, 6, 6),
             red[:, 37:61].reshape(G, 6, 4), red[:, 61:68], red[:, 68:72])

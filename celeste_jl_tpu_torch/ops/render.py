@@ -12,22 +12,39 @@ with q_c the precision quadratic form at the 1-based pixel coordinates
 (tile row/column index + meta offset). The lgamma(x + 1) terms are left
 out, as in the JAX function. There is no clamp on the rate.
 
-`mixture_poisson_ll` launches the CUDA kernel csrc/render.cu on CUDA
-tensors and runs `mixture_poisson_ll_plain`, its plain torch twin (the
-JAX package's `_xla_reference`), on CPU tensors. Both take an optional
-row -> tile index, so the rows of the AIS samples of one source share
-that source's tiles instead of copies of them. Unlike the TPU kernel,
-any C and any tile size run (the TPU's C <= 8 and (P*P) % 128 gates are
-not carried over).
+Two entry points:
+- `mixture_poisson_ll(pixels, mask, iota, bg, comps, meta, tile_index)`,
+  one model's rows (R, C, 6) on dense tiles;
+- `mixture_poisson_ll_ragged(tiles, plan, comps, meta)`, rows of any
+  component counts in one launch: `tiles` (`active_tiles`) holds each
+  tile's active pixels, made once per set of tiles, and `plan`
+  (`row_plan`) the rows' tiles and component counts, made once per set of
+  rows; comps are packed ragged, (sum_r C_r, 6).
+On CUDA tensors both launch the CUDA kernel csrc/render.cu (the first
+builds the tiles and the plan on each call); on CPU tensors they run the
+plain torch twin `mixture_poisson_ll_plain` (the JAX package's
+`_xla_reference`), once per segment of rows with one C. Unlike the TPU
+kernel, any C and any tile size run (the TPU's C <= 8 and (P*P) % 128
+gates are not carried over).
+
+Tests: the twin against the JAX package on the CPU in
+tests/test_torch_render.py (`python -m pytest tests/test_torch_render.py`);
+the kernel against the twin on a CUDA card in tests/test_torch_kernels.py
+(`python -m pytest --noconftest -p no:cacheprovider
+tests/test_torch_kernels.py -m cuda`, which skips without a card).
 """
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 LN2PI = math.log(2.0 * math.pi)
+# most rows (one warp each) in a block of the kernel: a block stages its
+# tile's active pixels once for its rows
+K4_WARPS = 8
 
 
 def pack_mixture(means, covs, weights):
@@ -89,11 +106,152 @@ def mixture_poisson_ll_plain(pixels, mask, iota, bg, comps, meta,
     return torch.sum(ll, dim=(1, 2))
 
 
+class ActiveTiles(NamedTuple):
+    """T tiles in both of K4's forms: dense (the plain twin's input) and
+    as a list of each tile's active pixels (the kernel's), tile t's being
+    entries ptr[t] .. ptr[t + 1] - 1 in row-major order."""
+    pixels: torch.Tensor   # (T, P, P), 0 where masked
+    mask: torch.Tensor     # (T, P, P) 0/1
+    iota: torch.Tensor     # (T, P, P)
+    bg: torch.Tensor       # (T, P, P)
+    ptr: torch.Tensor      # (T + 1,) int32
+    pos: torch.Tensor      # (n,) int32: tile row << 16 | tile column
+    x: torch.Tensor        # (n,) pixels, iota and bg at the active pixels
+    iota_a: torch.Tensor
+    bg_a: torch.Tensor
+
+
+def active_tiles(pixels, mask, iota, bg):
+    """The ActiveTiles of (T, P, P) tiles; mask must be 0/1. Plain torch
+    on the tiles' device (one host read, for the list's length)."""
+    T, P = pixels.shape[0], pixels.shape[-1]
+    if P >= 1 << 15:
+        raise ValueError(f"active_tiles: tile width {P} too large")
+    if not bool(torch.all((mask == 0) | (mask == 1))):
+        raise ValueError("active_tiles: mask must be 0 or 1")
+    act = mask.reshape(T, -1) > 0
+    ptr = torch.zeros(T + 1, dtype=torch.int32, device=pixels.device)
+    ptr[1:] = torch.cumsum(act.sum(dim=1), dim=0)
+    t, n = torch.nonzero(act, as_tuple=True)     # by tile, then row-major
+    pos = ((n // P) << 16 | n % P).to(torch.int32)
+    at = lambda f: f.reshape(T, -1)[t, n].contiguous()
+    return ActiveTiles(pixels, mask, iota, bg, ptr, pos, at(pixels),
+                       at(iota), at(bg))
+
+
+class RowPlan(NamedTuple):
+    """The rows of one K4 launch: consecutive segments of rows with one
+    component count each, every row's tile, and the kernel's grouping of
+    rows by tile: work item w = [tile, begin, end] takes rows
+    order[begin:end], at most `warps` rows of one tile (tile -1 collects
+    the rows whose tile index is out of range), heaviest items first."""
+    tile_index: torch.Tensor   # (R,) row -> tile
+    segments: tuple            # ((rows, C), ...) in row order
+    comp_ptr: torch.Tensor     # (R + 1,) int32 first packed component
+    order: torch.Tensor        # (R,) int32 rows grouped by tile
+    work: torch.Tensor         # (n_work, 3) int32
+    warps: int                 # warps (rows) a block
+
+
+def row_plan(tiles: ActiveTiles, tile_index, segments, max_warps=K4_WARPS):
+    """The RowPlan of rows (R,) -> tile of `tiles`, made of the segments
+    ((rows, C), ...). Plain torch on tile_index's device (two host reads).
+
+    A tile's rows go to the fewest work items of at most max_warps rows,
+    and a block has as many warps as the busiest tile's items need (the
+    AIS's 10, 20 or 40 rows a tile: 5, 7 or 8 warps). The items are
+    ordered by their work (active pixels x components), heaviest first,
+    so that the launch's last blocks are short ones."""
+    dev = tile_index.device
+    R = tile_index.numel()
+    n_tiles = tiles.ptr.numel() - 1
+    if sum(n for n, _ in segments) != R or any(n < 0 or C < 0
+                                               for n, C in segments):
+        raise ValueError(f"row_plan: segments {segments} for {R} rows")
+    ti = tile_index.reshape(-1).long()
+    ok = (ti >= 0) & (ti < n_tiles)
+    group = torch.where(ok, ti, n_tiles)
+    order = torch.argsort(group, stable=True)
+    count = torch.bincount(group, minlength=n_tiles + 1)
+    n_max = int(count.max()) if R else 0
+    warps = -(-n_max // -(-n_max // max_warps)) if n_max else 1
+    first = torch.cumsum(count, 0) - count
+    n_items = (count + warps - 1) // warps
+    n_work = int(n_items.sum())
+    g = torch.repeat_interleave(torch.arange(n_tiles + 1, device=dev),
+                                n_items, output_size=n_work)
+    k = torch.arange(n_work, device=dev) - (torch.cumsum(n_items, 0)
+                                            - n_items)[g]
+    begin = first[g] + k * count[g] // n_items[g]
+    end = first[g] + (k + 1) * count[g] // n_items[g]
+    sizes = torch.repeat_interleave(
+        torch.tensor([C for _, C in segments], device=dev),
+        torch.tensor([n for n, _ in segments], device=dev), output_size=R)
+    n_act = (tiles.ptr[1:] - tiles.ptr[:-1]).long()
+    cost = torch.where(ok, sizes * n_act[ti.clamp(0, max(n_tiles - 1, 0))],
+                       0) if n_tiles else torch.zeros_like(sizes)
+    cum = torch.cat([cost.new_zeros(1), torch.cumsum(cost[order], 0)])
+    heavy = torch.argsort(cum[end] - cum[begin], descending=True,
+                          stable=True)
+    work = torch.stack([torch.where(g < n_tiles, g, -1), begin, end], dim=1)
+    comp_ptr = torch.zeros(R + 1, dtype=torch.int32, device=dev)
+    comp_ptr[1:] = torch.cumsum(sizes, 0)
+    return RowPlan(tile_index, tuple(segments), comp_ptr,
+                   order.to(torch.int32),
+                   work[heavy].to(torch.int32).contiguous(), warps)
+
+
+def mixture_poisson_ll_ragged_plain(tiles: ActiveTiles, plan: RowPlan, comps,
+                                    meta):
+    """The plain twin on ragged rows: one `mixture_poisson_ll_plain` call
+    per segment of plan, (R,)."""
+    out, r0, k0 = [], 0, 0
+    for n, C in plan.segments:
+        out.append(mixture_poisson_ll_plain(
+            tiles.pixels, tiles.mask, tiles.iota, tiles.bg,
+            comps[k0:k0 + n * C].reshape(n, C, 6), meta[r0:r0 + n],
+            plan.tile_index[r0:r0 + n]))
+        r0, k0 = r0 + n, k0 + n * C
+    return torch.cat(out)
+
+
+def mixture_poisson_ll_ragged(tiles: ActiveTiles, plan: RowPlan, comps, meta):
+    """Per-row log-likelihood of the rows of `plan`, (R,): comps
+    (sum_r C_r, 6) packed in row order, meta (R, 4). csrc/render.cu in one
+    launch on CUDA tensors (f32 or f64), the plain twin on CPU tensors.
+    Anything else raises; a row whose tile index is outside [0, T) comes
+    back NaN, a row whose tile has no active pixel 0."""
+    if comps.device.type == "cpu":
+        return mixture_poisson_ll_ragged_plain(tiles, plan, comps, meta)
+    dtype = comps.dtype
+    _build.check_cuda(dtype, comps.device)
+    R = plan.order.numel()
+    n_comps = sum(n * C for n, C in plan.segments)
+    if (comps.shape != (n_comps, 6) or meta.shape != (R, 4)
+            or tiles.x.dtype != dtype):
+        raise ValueError(
+            f"mixture_poisson_ll_ragged: comps {tuple(comps.shape)} (want "
+            f"({n_comps}, 6)), meta {tuple(meta.shape)} (want ({R}, 4)), "
+            f"tiles {tiles.x.dtype}, rows {comps.dtype}")
+    out = torch.empty(R, dtype=dtype, device=comps.device)
+    if R:
+        _build.launch("mixture_poisson_ll", dtype, comps.contiguous(),
+                      plan.comp_ptr, meta.to(dtype).contiguous(), tiles.ptr,
+                      tiles.pos, tiles.x, tiles.iota_a, tiles.bg_a,
+                      plan.order, plan.work, out, plan.work.shape[0],
+                      plan.warps)
+        mixture_poisson_ll.launches += 1
+    return out
+
+
 def mixture_poisson_ll(pixels, mask, iota, bg, comps, meta, tile_index=None):
     """Same contract as `mixture_poisson_ll_plain`: csrc/render.cu on CUDA
-    tensors (f32 or f64, any C and P), the plain twin on CPU tensors.
-    Anything else raises; a row whose tile index is outside [0, T) comes
-    back NaN (checked on the card, where the index lives)."""
+    tensors (f32 or f64, any C and P), through `active_tiles`, `row_plan`
+    and `mixture_poisson_ll_ragged` on each call; the plain twin on CPU
+    tensors. Anything else raises; a row whose tile index is outside
+    [0, T) comes back NaN (checked on the card, where the index lives).
+    `mixture_poisson_ll.launches` counts the kernel's launches, from
+    either entry point."""
     if comps.device.type == "cpu":
         return mixture_poisson_ll_plain(pixels, mask, iota, bg, comps, meta,
                                         tile_index)
@@ -110,16 +268,11 @@ def mixture_poisson_ll(pixels, mask, iota, bg, comps, meta, tile_index=None):
             f"{tuple(meta.shape)}, tiles {tuple(pixels.shape)}, tile_index "
             f"{None if tile_index is None else tuple(tile_index.shape)}")
     if tile_index is None:
-        tile_index = torch.arange(R, dtype=torch.int32, device=comps.device)
-    tiles = [t.to(dtype).contiguous() for t in (pixels, mask, iota, bg)]
-    out = torch.empty(R, dtype=dtype, device=comps.device)
-    if R:
-        _build.launch("mixture_poisson_ll", dtype, comps.contiguous(),
-                      meta.to(dtype).contiguous(), *tiles,
-                      tile_index.to(torch.int32).contiguous(), out, R, C, P,
-                      T)
-        mixture_poisson_ll.launches += 1
-    return out
+        tile_index = torch.arange(R, device=comps.device)
+    tiles = active_tiles(*(t.to(dtype) for t in (pixels, mask, iota, bg)))
+    plan = row_plan(tiles, tile_index, ((R, C),))
+    return mixture_poisson_ll_ragged(tiles, plan, comps.reshape(R * C, 6),
+                                     meta)
 
 
 mixture_poisson_ll.launches = 0

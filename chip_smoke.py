@@ -5,10 +5,11 @@
 
 Phases, one line each; the first failure exits non-zero:
   1. set-up: needs a CUDA device, prints the card's name and power limit
-     (nvidia-smi), builds the three kernels from csrc/ with nvcc;
-  2. each kernel against its plain torch twin on the card, at the main
-     path's shapes, in f64 (tight) and f32 (the working type), with both
-     median times;
+     (nvidia-smi), builds the kernels from csrc/ with nvcc;
+  2. K1-K3 against their plain torch twins on the card, at the main path's
+     shapes, in f64 (tight) and f32 (the working type), with median times:
+     a kernel's on the card alone (timed_ms's queued calls) and with the
+     host's enqueue, the twin's as a caller sees it;
   3. the slice: synthetic_patch_batch(1024, tile=32, seed=1) fitted by
      fit_sources_compacted with bench.py's configuration in f32; every ELBO
      finite and every kernel launched; fits/s, mean iterations, converged
@@ -17,15 +18,20 @@ Phases, one line each; the first failure exits non-zero:
      twice with bench.py's configuration; in f64 the classifications agree
      and no lane's ELBO is worse than the plain run's by more than 1e-4
      relative; the same comparison in f32 is reported;
-  5. the MCMC slice's kernel K4 (the fused render + Poisson score) against
-     its twin at the AIS shapes (64 sources x 10 samples, both models,
-     32x32 tiles, plus 16x16 and 64x64), and the split Jacobi sweep K2a +
-     K2b against its twin and against K2, with both median times;
+  5. the compiled shape of the redesigned kernels K1 and K4 (registers,
+     local memory, shared memory, blocks per SM; nvcc's -Xptxas -v
+     lines); the MCMC slice's kernel K4 (the fused render + Poisson score)
+     against its twin at the AIS shapes (64 sources x 10 samples, 32x32
+     tiles, plus 16x16 and 64x64) for each model through the single-model
+     entry and for both models in one ragged launch, with times at several
+     warps a block, the bound and the exp floor; and the split Jacobi sweep
+     K2a + K2b against its twin and against K2, with times;
   6. the MCMC slice at full width: run_ais_batched on bench_mcmc.py's
      64-source scene with the production AIS program (50 temperatures x
      10 samples, 25-step chains, 1000 bootstrap draws, both models) in
      f32; every lnZ and chain value finite, galaxy recall 1.0 and 2-sd
-     calibration coverage >= 0.85 on r-flux and the four colors;
+     calibration coverage >= 0.85 on r-flux and the four colors; K4
+     launches (one per evaluation) and host reads per sweep;
   7. the AIS program through K4 and through its twin in f64 from the same
      seed on 8 sources (20 temperatures x 4 samples, 10-step chains): the
      same star/galaxy side everywhere and lnZ within 1e-6 relative on at
@@ -70,6 +76,13 @@ ROUTE_AIS = dict(num_temperatures=20, num_samples=4, num_samples_per_chain=10)
 # outside the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# the SFUs' exp2 rate: 16 a clock per SM (CUDA programming guide's
+# throughput table, compute capability 9.0), 132 SMs, 1.98 GHz boost
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+# the spin before each timed call (timed_ms): ~1 ms at the H100's clock
+SPIN_CYCLES = 2_000_000
+# warps a block of K4 timed in phase 5 (render.K4_WARPS is the default)
+K4_WARPS_TRIED = (4, 8, 16)
 
 
 class PhaseError(Exception):
@@ -81,15 +94,21 @@ def check(ok, msg):
         raise PhaseError(msg)
 
 
-def timed_ms(fn, torch, reps=10):
-    """Median wall time of fn() on the card, ms: CUDA events around each
-    call, after one warm-up call."""
+def timed_ms(fn, torch, reps=10, queued=True):
+    """Median time of fn() on the card, ms: CUDA events around each call,
+    after one warm-up call. queued: a spin kernel of ~1 ms runs before
+    each call, so the host has enqueued the call by the time the card
+    reaches it and the events time the card's work alone; queued=False
+    also times the host's enqueue where it is slower than the card, as a
+    caller that waits for each call sees it."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -209,8 +228,8 @@ def phase_kernels(device="cuda", k1_sets=((1024, 32), (64, 16), (16, 128)),
     from celeste_jl_tpu_torch.ops import eigh, refresh, tr
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    time_fn = ((lambda fn: timed_ms(fn, torch)) if device == "cuda"
-               else (lambda fn: float("nan")))
+    time_fn = ((lambda fn, queued=True: timed_ms(fn, torch, queued=queued))
+               if device == "cuda" else (lambda fn, queued=True: float("nan")))
     rec = {}
 
     # K1: the refresh pixel pass
@@ -231,10 +250,11 @@ def phase_kernels(device="cuda", k1_sets=((1024, 32), (64, 16), (16, 128)),
                    + ", ".join(f"{n} {e:.2g}" for n, e in errs.items()) + ")")
             check(all(np.isfinite(list(errs.values()))) and err < tol, msg)
             if dtype == torch.float32 and i == 0:
-                ms = time_fn(lambda: refresh.pixel_terms(*rows, ks=ks,
-                                                         pdims=pdims))
+                kernel = lambda: refresh.pixel_terms(*rows, ks=ks,
+                                                     pdims=pdims)
+                ms, host_ms = time_fn(kernel), time_fn(kernel, queued=False)
                 plain_ms = time_fn(lambda: refresh.pixel_terms_plain(
-                    *rows, ks=ks, pdims=pdims))
+                    *rows, ks=ks, pdims=pdims), queued=False)
                 # pass 1's work on the active pixels, ~(60 C + 400) flops
                 # each (csrc/refresh.cu); every input read and output
                 # written once
@@ -246,7 +266,8 @@ def phase_kernels(device="cuda", k1_sets=((1024, 32), (64, 16), (16, 128)),
                                       plain_ms=plain_ms, library_ms=None,
                                       **bound(active * (60 * C + 400),
                                               nbytes))
-                msg += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                msg += (f"; kernel {ms:.3f} ms ({host_ms:.3f} with the "
+                        f"host's enqueue), plain {plain_ms:.3f} ms")
             print(msg, flush=True)
 
     # K2: one parallel-Jacobi sweep, and jacobi_eigh through it
@@ -296,12 +317,15 @@ def phase_kernels(device="cuda", k1_sets=((1024, 32), (64, 16), (16, 128)),
               and kq[1] < EIGH_BARS["orth"] and kq[2] < EIGH_BARS["resid"],
               msg)
         if dtype == torch.float32:
-            ms = time_fn(lambda: eigh.jacobi_sweep(H, eye))
-            plain_ms = time_fn(lambda: eigh.jacobi_sweep_plain(H, eye))
+            kernel = lambda: eigh.jacobi_sweep(H, eye)
+            ms, host_ms = time_fn(kernel), time_fn(kernel, queued=False)
+            plain_ms = time_fn(lambda: eigh.jacobi_sweep_plain(H, eye),
+                               queued=False)
             rec["jacobi_sweep"] = dict(max_abs_err=abs_err, ms=ms,
                                        plain_ms=plain_ms, library_ms=None,
                                        **sweep_bound(n_mats, 42, "aq"))
-            msg += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+            msg += (f"; kernel {ms:.3f} ms ({host_ms:.3f} with the host's "
+                    f"enqueue), plain {plain_ms:.3f} ms")
         print(msg, flush=True)
 
     # K3: the trust-region subproblem
@@ -333,15 +357,18 @@ def phase_kernels(device="cuda", k1_sets=((1024, 32), (64, 16), (16, 128)),
         msg = f"K3 tr_subproblem {str(dtype)[6:]} B={n_mats} D=42: {tol_txt}"
         check(ok, msg)
         if dtype == torch.float32:
-            ms = time_fn(lambda: tr.tr_subproblem(gq, w, delta, 48))
+            kernel = lambda: tr.tr_subproblem(gq, w, delta, 48)
+            ms, host_ms = time_fn(kernel), time_fn(kernel, queued=False)
             plain_ms = time_fn(lambda: tr.tr_subproblem_plain(gq, w, delta,
-                                                              48))
+                                                              48),
+                               queued=False)
             # ~5 flops per coordinate per bisection; gq, w, delta in,
             # p and pred out
             rec["tr_subproblem"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                 **bound(n_mats * 48 * 42 * 5, 4 * n_mats * (3 * 42 + 2)))
-            msg += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+            msg += (f"; kernel {ms:.3f} ms ({host_ms:.3f} with the host's "
+                    f"enqueue), plain {plain_ms:.3f} ms")
         print(msg, flush=True)
     print("phase 2 ok: K1, K2, K3 agree with their plain twins", flush=True)
     return rec
@@ -457,10 +484,11 @@ def mcmc_scene(device, n_sources=64):
     return ais_bench_scene(n_sources, device=device)
 
 
-def k4_rows(scene, P, device, dtype, is_star, n_samples=10, seed=5):
-    """K4's arguments at the AIS shapes: every source of the scene on its
+def k4_inputs(scene, P, device, dtype, n_samples=10, seed=5):
+    """K4's inputs at the AIS shapes: every source of the scene on its
     P x P tiles (bench_mcmc.py's radius 8), n_samples prior draws per
-    source of one model, as the AIS's first evaluation scores them."""
+    source of each model, as the AIS's first evaluation scores them.
+    Returns the LaneBlocks of the star and galaxy blocks and their lanes."""
     import torch
 
     from celeste_jl_tpu_torch.mcmc import infer, log_prob
@@ -472,68 +500,155 @@ def k4_rows(scene, P, device, dtype, is_star, n_samples=10, seed=5):
                                 [8.0] * S, P, device=device, dtype=dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     prior = default_prior(torch.device(device), dtype)
-    sampler = (log_prob.sample_star_prior if is_star
-               else log_prob.sample_gal_prior)
-    th = sampler(gen, S * n_samples, prior)
+    ths = [log_prob.sample_star_prior(gen, S * n_samples, prior),
+           log_prob.sample_gal_prior(gen, S * n_samples, prior)]
     src = torch.arange(S, device=device).repeat_interleave(n_samples)
-    return log_prob.fused_rows(log_prob.lanes(tgt, src), th, is_star)
+    return log_prob.lane_blocks(tgt, [(True, src), (False, src)]), ths
+
+
+def k4_launch(lb, ths, blocks):
+    """mixture_poisson_ll_ragged's arguments (tiles, plan, comps, meta)
+    scoring the blocks `blocks` (indices into lb) in one launch."""
+    import torch
+
+    from celeste_jl_tpu_torch.mcmc import log_prob
+    from celeste_jl_tpu_torch.ops import render
+
+    rows = [log_prob.row_inputs(lb.lanes[k], ths[k], lb.is_star[k])
+            for k in blocks]
+    tiles = lb.lanes[0].tiles.k4
+    plan = render.row_plan(
+        tiles, torch.cat([lb.lanes[k].tile_index for k in blocks]),
+        tuple((m.shape[0], c.shape[1]) for c, m in rows))
+    return (tiles, plan, torch.cat([c.reshape(-1, 6) for c, _ in rows]),
+            torch.cat([m for _, m in rows]))
+
+
+def k4_work(args):
+    """Active pixels x components summed over the rows of K4's launch
+    `args`: the accurate exps it evaluates."""
+    tiles, plan, _, _ = args
+    n_act = (tiles.ptr[1:] - tiles.ptr[:-1]).double()
+    C = (plan.comp_ptr[1:] - plan.comp_ptr[:-1]).double()
+    return float((C * n_act[plan.tile_index.long()]).sum())
 
 
 def k4_bound(args):
     """K4's bound: ~12 flops per component per active pixel of each row
     (the exps and logs not counted), ~8 per active pixel for the score;
-    the shared tiles, comps, meta, index and output moved once each."""
-    x, mask, iota, bg, comps, meta, idx = args
-    R, C, _ = comps.shape
-    act = mask.reshape(mask.shape[0], -1).sum(-1)[idx].sum()
-    nbytes = (4 * x.numel() + comps.numel() + meta.numel()) * 4 + R * 8
-    return bound(float(act) * (12 * C + 8), nbytes)
+    the shared tiles, comps, meta, index and output moved once each. Also
+    its exp floor: the accurate exps alone at the SFUs' rate (16 a clock
+    per SM, 132 SMs, the 1.98 GHz boost clock)."""
+    tiles, plan, comps, meta = args
+    n_act = (tiles.ptr[1:] - tiles.ptr[:-1]).double()
+    act = float(n_act[plan.tile_index.long()].sum())
+    nbytes = ((4 * tiles.pixels.numel() + comps.numel() + meta.numel()) * 4
+              + meta.shape[0] * 8)
+    rec = bound(12 * k4_work(args) + 8 * act, nbytes)
+    rec["exp_floor_ms"] = k4_work(args) / SFU_EXP_PER_S * 1e3
+    return rec
+
+
+def kernel_report(dtype):
+    """The redesigned kernels' compiled shape on this card: registers,
+    local memory (spills), shared memory and blocks per SM."""
+    from celeste_jl_tpu_torch.ops import _build, render
+
+    lines = []
+    for name, what, arg in (("refresh", "C", 30),
+                            ("mixture_poisson_ll", "warps", render.K4_WARPS)):
+        a = _build.kernel_attrs(name, dtype, arg)
+        lines.append(f"{name} {str(dtype)[6:]} ({what} = {arg}): "
+                     f"{a['registers']} registers, {a['local_bytes']} B "
+                     f"local, {a['shared_bytes']} B shared, "
+                     f"{a['blocks_per_sm']} blocks per SM")
+    return lines
 
 
 def phase_new_kernels(scene, device="cuda", tiles=(32, 16, 64),
                       n_samples=10, n_mats=1024):
-    """K4 against its twin at the AIS shapes, and the split sweep K2a+K2b
-    against its twin and against K2. Returns {name: record}."""
+    """K4 against its twin at the AIS shapes, one model at a time (through
+    the single-model entry) and both in one launch, and the split sweep
+    K2a+K2b against its twin and against K2. Returns {name: record}."""
     import torch
 
-    from celeste_jl_tpu_torch.ops import eigh, render
+    from celeste_jl_tpu_torch.mcmc import log_prob
+    from celeste_jl_tpu_torch.ops import _build, eigh, render
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    time_fn = ((lambda fn: timed_ms(fn, torch)) if device == "cuda"
-               else (lambda fn: float("nan")))
+    time_fn = ((lambda fn, queued=True: timed_ms(fn, torch, queued=queued))
+               if device == "cuda" else (lambda fn, queued=True: float("nan")))
     rec = {}
+    if device == "cuda":
+        for dtype in (torch.float32, torch.float64):
+            for line in kernel_report(dtype):
+                print(f"phase 5: {line}", flush=True)
+        for kernel in ("refresh_kernel", "render_ll_kernel"):
+            for line in _build.ptxas_lines(kernel):
+                print(f"phase 5: ptxas {line}", flush=True)
     for dtype, tol in ((torch.float64, K4_F64_TOL),
                        (torch.float32, K4_F32_TOL)):
         for P in tiles:
-            for is_star in (True, False):
-                args = k4_rows(scene, P, device, dtype, is_star, n_samples)
-                got = render.mixture_poisson_ll(*args)
-                want = render.mixture_poisson_ll_plain(*args)
+            lb, ths = k4_inputs(scene, P, device, dtype, n_samples)
+            for label, blocks in (("star", (0,)), ("galaxy", (1,)),
+                                  ("both", (0, 1))):
+                args = k4_launch(lb, ths, blocks)
+                if label == "both":
+                    got = render.mixture_poisson_ll_ragged(*args)
+                else:   # the single-model entry
+                    k = blocks[0]
+                    got = render.mixture_poisson_ll(*log_prob.fused_rows(
+                        lb.lanes[k], ths[k], lb.is_star[k]))
+                want = render.mixture_poisson_ll_ragged_plain(*args)
                 sync()
                 d = (got - want).double().abs()
                 err = float((d / want.double().abs().clamp(min=1e-30)).max())
-                R, C, _ = args[4].shape
-                msg = (f"K4 mixture_poisson_ll {str(dtype)[6:]} R={R} C={C} "
-                       f"P={P}: max rel err per row {err:.3g} (tol {tol:g})")
+                tl, plan, comps, _ = args
+                msg = (f"K4 mixture_poisson_ll {label} {str(dtype)[6:]} R="
+                       f"{plan.order.numel()} C="
+                       f"{'/'.join(str(C) for _, C in plan.segments)} P={P}: "
+                       f"max rel err per row {err:.3g} (tol {tol:g})")
                 check(bool(torch.all(torch.isfinite(got))) and err < tol, msg)
                 if dtype == torch.float32:
                     # which f32 route carries the difference: each against
                     # the twin in f64 on the same (f32) inputs
-                    w64 = render.mixture_poisson_ll_plain(
-                        *(a.double() if a.is_floating_point() else a
-                          for a in args))
+                    tl64 = tl._replace(**{f: getattr(tl, f).double() for f in
+                                          ("pixels", "mask", "iota", "bg")})
+                    w64 = render.mixture_poisson_ll_ragged_plain(
+                        tl64, plan, comps.double(), args[3].double())
                     e64 = lambda r: float(((r.double() - w64).abs()
                                            / w64.abs().clamp(min=1e-30)).max())
                     msg += (f"; vs f64: kernel {e64(got):.3g}, twin "
                             f"{e64(want):.3g}")
-                if dtype == torch.float32 and P == tiles[0] and not is_star:
-                    ms = time_fn(lambda: render.mixture_poisson_ll(*args))
-                    plain_ms = time_fn(
-                        lambda: render.mixture_poisson_ll_plain(*args))
-                    rec["mixture_poisson_ll"] = dict(
-                        max_abs_err=float(d.max()), ms=ms, plain_ms=plain_ms,
-                        library_ms=None, **k4_bound(args))
-                    msg += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                if (dtype == torch.float32 and P == tiles[0]
+                        and label != "star"):
+                    # the kernel alone: tiles and row plan made beforehand,
+                    # as the AIS makes them once per set of lanes
+                    times = {}
+                    for w in K4_WARPS_TRIED:
+                        plan_w = render.row_plan(tl, plan.tile_index,
+                                                 plan.segments, w)
+                        times[w] = time_fn(
+                            lambda: render.mixture_poisson_ll_ragged(
+                                tl, plan_w, comps, args[3]))
+                    ms = times[render.K4_WARPS]
+                    host_ms = time_fn(lambda: render.mixture_poisson_ll_ragged(
+                        *args), queued=False)
+                    b = k4_bound(args)
+                    msg += ("; kernel ms by most warps a block " + ", ".join(
+                        f"{w}: {t:.4f}" for w, t in times.items())
+                        + f" ({host_ms:.4f} with the host's enqueue); bound "
+                        f"{b['bound_ms']:.5f} ms, exp floor "
+                        f"{b['exp_floor_ms']:.5f} ms")
+                    if label == "galaxy":
+                        plain_ms = time_fn(
+                            lambda: render.mixture_poisson_ll_ragged_plain(
+                                *args), queued=False)
+                        b.pop("exp_floor_ms")
+                        rec["mixture_poisson_ll"] = dict(
+                            max_abs_err=float(d.max()), ms=ms,
+                            plain_ms=plain_ms, library_ms=None, **b)
+                        msg += f", plain {plain_ms:.3f} ms"
                 print(msg, flush=True)
 
     rng = np.random.default_rng(0)
@@ -581,11 +696,13 @@ def phase_new_kernels(scene, device="cuda", tiles=(32, 16, 64),
                      lambda: eigh.jacobi_replay_q_plain(eye, cs), "q",
                      float((Q1 - eigh.jacobi_replay_q_plain(eye, cs))
                            .abs().max()))):
-                ms, plain_ms = time_fn(fn), time_fn(pfn)
+                ms, host_ms = time_fn(fn), time_fn(fn, queued=False)
+                plain_ms = time_fn(pfn, queued=False)
                 rec[name] = dict(max_abs_err=abs_err, ms=ms,
                                  plain_ms=plain_ms, library_ms=None,
                                  **sweep_bound(n_mats, 42, part))
-                msg += f"; {name} {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                msg += (f"; {name} {ms:.3f} ms ({host_ms:.3f} with the host's "
+                        f"enqueue), plain {plain_ms:.3f} ms")
         print(msg, flush=True)
     print("phase 5 ok: K4, K2a, K2b agree with their plain twins", flush=True)
     return rec
@@ -659,7 +776,9 @@ def phase_mcmc(scene, device="cuda", ais=FULL_AIS, bars=True):
     msg = (f"phase 6: {S} sources, AIS {ais['num_temperatures']} temps x "
            f"{n} samples + {T}-step chains, f32: {wall:.3f} s = "
            f"{S / wall:.4f} sources/s; K4 launches "
-           f"{launches['mixture_poisson_ll']}; host reads {reads} "
+           f"{launches['mixture_poisson_ll']} "
+           f"({launches['mixture_poisson_ll'] / sweeps:.1f} per sweep); "
+           f"host reads {reads} "
            f"({reads / sweeps:.1f} per sweep, {reads / (11 * sweeps):.2f} "
            f"per coordinate step); galaxy recall {recall:.4f}; stars with "
            f"p(star) > 0.5 {star_side:.4f}; 2-sd coverage "

@@ -138,7 +138,7 @@ def test_render_kernel_matches_plain(cuda, P, is_star):
 
 
 def test_render_kernel_many_components(cuda):
-    """C = 100 > the kernel's 64-component chunk, tiles far from the image
+    """C = 100 > the kernel's 32-component chunk, tiles far from the image
     origin (offsets ~400 px), f64, per row."""
     rng = np.random.default_rng(4)
     R, C, P = 6, 100, 32
@@ -161,6 +161,91 @@ def test_render_kernel_many_components(cuda):
     got = render.mixture_poisson_ll(*args)
     want = render.mixture_poisson_ll_plain(*args)
     assert float(((got - want).abs() / want.abs()).max()) < 1e-10
+
+
+def _k4_mixed(device, P, dtype=F64, seed=0):
+    """K4's ragged inputs on 5 P x P tiles (tile 0 without an active pixel,
+    tile 1 all active, the others a disk of radius P / 3): 7 star rows
+    (C = 2) then 9 galaxy-sized rows (C = 28), each segment with one row
+    whose tile index is out of range (5)."""
+    rng = np.random.default_rng(seed + P)
+    T = 5
+    ii, jj = np.meshgrid(np.arange(P), np.arange(P), indexing="ij")
+    disk = ((ii - P / 2) ** 2 + (jj - P / 2) ** 2 < (P / 3) ** 2) * 1.0
+    mask = np.stack([np.zeros((P, P)), np.ones((P, P))] + [disk] * (T - 2))
+    iota = rng.uniform(800.0, 1200.0, (T, P, P))
+    bg = rng.uniform(0.05, 0.15, (T, P, P))
+    pixels = rng.poisson(iota * (bg + 0.3)) * mask
+    segments = ((7, 2), (9, 28))
+    R = sum(n for n, _ in segments)
+    tile_index = rng.integers(0, T, R)
+    tile_index[[3, 10]] = T
+    off = rng.integers(-3, 400, (R, 2)).astype(np.float64)
+    comps = []
+    for n, C in segments:
+        means = P / 2 + rng.normal(0.0, 2.0, (n, C, 2))
+        a, d = rng.uniform(0.5, 6.0, (2, n, C))
+        b = rng.uniform(-0.4, 0.4, (n, C)) * np.sqrt(a * d)
+        covs = np.stack([np.stack([a, b], -1), np.stack([b, d], -1)], -2)
+        comps.append(render.pack_mixture(
+            *(torch.tensor(v) for v in (means, covs,
+                                         rng.dirichlet(np.ones(C), n)))))
+    comps = torch.cat([c.reshape(-1, 6) for c in comps])
+    # mixtures follow their row's tile offset
+    per_comp = np.repeat(np.arange(R), [C for n, C in segments
+                                        for _ in range(n)])
+    comps[:, :2] += torch.tensor(off[per_comp] + 1.0)
+    meta = np.stack([off[:, 0] + 1.0, off[:, 1] + 1.0,
+                     rng.uniform(5.0, 50.0, R), np.zeros(R)], 1)
+    t = lambda v: torch.as_tensor(v, device=device).to(dtype)
+    tiles = render.active_tiles(t(pixels), t(mask), t(iota), t(bg))
+    idx = torch.as_tensor(tile_index, device=device)
+    return tiles, idx, segments, t(comps), t(meta)
+
+
+@pytest.mark.parametrize("P", [16, 32, 64])
+def test_render_kernel_mixed_launch(cuda, P):
+    """K4 on one launch of star and galaxy rows against its twin, per row
+    (f64, 1e-10): an empty tile gives 0, a full tile and disks are scored,
+    out-of-range rows are NaN; two launches are bit-identical."""
+    tiles, idx, segments, comps, meta = _k4_mixed(cuda, P)
+    for warps in (3, render.K4_WARPS):
+        plan = render.row_plan(tiles, idx, segments, warps)
+        n0 = render.mixture_poisson_ll.launches
+        got = render.mixture_poisson_ll_ragged(tiles, plan, comps, meta)
+        again = render.mixture_poisson_ll_ragged(tiles, plan, comps, meta)
+        assert render.mixture_poisson_ll.launches == n0 + 2
+        assert torch.equal(torch.isnan(got), idx == 5)
+        assert torch.equal(got[~torch.isnan(got)], again[~torch.isnan(again)])
+        ok = idx < 5
+        want = render.mixture_poisson_ll_ragged_plain(
+            tiles, plan._replace(tile_index=torch.where(ok, idx, 0)), comps,
+            meta)
+        assert torch.all(got[ok & (idx == 0)] == 0)
+        rel = (got - want).abs() / want.abs().clamp(min=1e-300)
+        assert float(rel[ok & (idx > 0)].max()) < 1e-10
+
+
+def test_refresh_kernel_masked_rows(cuda):
+    """K1 on a fully masked row (every output exactly 0) and on rows with a
+    scattered mask against its twin (f64, 1e-9 of each output's scale);
+    two launches are bit-identical."""
+    rows, ks, pdims = _rows(cuda, n_sources=4, tile=32)
+    rows = list(rows)
+    mask = rows[7].clone()
+    mask[0] = 0.0
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    mask[1:5] *= (torch.rand(mask[1:5].shape, device=cuda, generator=gen)
+                  > 0.3).to(mask.dtype)
+    rows[7] = mask
+    got = refresh.pixel_terms(*rows, ks=ks, pdims=pdims)
+    again = refresh.pixel_terms(*rows, ks=ks, pdims=pdims)
+    want = refresh.pixel_terms_plain(*rows, ks=ks, pdims=pdims)
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, c)
+        assert torch.all(a[0] == 0)
+        scale = b.abs().amax(dim=0, keepdim=True).clamp(min=1e-30)
+        assert float(((a - b).abs() / scale).max()) < 1e-9
 
 
 def test_wrappers_reject_what_kernels_do_not_take(cuda):

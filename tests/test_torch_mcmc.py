@@ -103,6 +103,48 @@ def test_log_densities_match_jax(scene, fused, monkeypatch):
         np.testing.assert_allclose(got, want, rtol=1e-10)
 
 
+def test_merged_evaluator_matches_jax(scene, monkeypatch):
+    """The AIS evaluator scores star and galaxy lanes, and m stacked copies
+    of them, in one K4 call per evaluation; its (loglike, logprior) equal
+    JAX's log densities lane by lane (f64, as above)."""
+    from celeste_jl_tpu_torch.ops import render
+
+    images, catalog = scene
+    jt = _jax_targets(images, catalog)
+    tgt = convert.source_target(
+        jax.tree.map(lambda *xs: np.stack(xs), *jt), "cpu", F64)
+    src = np.repeat([0, 1], 3)
+    jstack = jax.tree.map(lambda *xs: jnp.stack(xs), *[jt[s] for s in src])
+    rng = np.random.default_rng(12)
+    ths = [np.concatenate([_lanes(rng, 3, s) for _ in range(2)])
+           for s in (True, False)]
+    want = []
+    for kind, th in zip(("star", "gal"), ths):
+        want.append([np.asarray(jax.jit(jax.vmap(getattr(
+            jlp, f"{kind}_{name}")))(jnp.asarray(th), jstack))
+            for name in ("loglike", "logprior")])
+    calls = []
+    ragged = render.mixture_poisson_ll_ragged
+    monkeypatch.setattr(render, "mixture_poisson_ll_ragged",
+                        lambda *a: calls.append(1) or ragged(*a))
+    src_t = torch.tensor(src)
+    evaluate = infer._evaluator(tgt, [(True, src_t), (False, src_t)])
+    x = torch.tensor(np.concatenate(
+        [np.pad(ths[0], ((0, 0), (0, 4))), ths[1]]))
+    for m in (1, 2):
+        ll, lp = evaluate(x.repeat(m, 1))
+        assert len(calls) == m      # one K4 call per evaluation
+        for j, got in enumerate((ll, lp)):
+            got = got.reshape(m, 2, -1).numpy()
+            for k in range(2):
+                w = want[k][j]
+                fin = np.isfinite(w)
+                for copy in got[:, k]:
+                    assert np.array_equal(np.isfinite(copy), fin)
+                    np.testing.assert_allclose(copy[fin], w[fin],
+                                               rtol=1e-10)
+
+
 def test_prior_carried_across():
     """JAX's PRIOR through convert.py equals the port's own prior (its copy
     of data/priors.npz), field by field."""

@@ -123,3 +123,27 @@ def test_pixel_terms_raises_off_cpu_and_cuda():
     with pytest.raises(ValueError):
         refresh.pixel_terms(*meta, ks=mix[0], pdims=(16, 16))
 
+
+
+def test_chain_coefficient_structural_zeros():
+    """The refresh kernel skips the entries of P = chain R (pch, as
+    band_pixel_rows builds it) that are structurally zero: star components
+    reach theta rows 0, 1 through b = 1, 2 only; galaxy components rows
+    0, 1 through b = 1, 2, row 2 through b = 0 and rows 3..5 through
+    b = 0, 3, 4, 5 (the port-side copy of
+    tests/test_pallas_refresh.py::test_chain_coefficient_sparsity). The
+    live entries are not all zero."""
+    pattern = {0: (1, 2), 1: (1, 2), 2: (0,), 3: (0, 3, 4, 5),
+               4: (0, 3, 4, 5), 5: (0, 3, 4, 5)}
+    for seed in (5, 6):
+        vp, _, tp = _batch(n_sources=2, seed=seed)
+        _, mix = refresh.band_pixel_rows(*_band_inputs(vp, tp))
+        ks, pch = mix[0], mix[4].numpy()
+        for P, pats in ((pch[..., :ks, :, :], {0: (1, 2), 1: (1, 2)}),
+                        (pch[..., ks:, :, :], pattern)):
+            for t in range(6):
+                live = list(pats.get(t, ()))
+                dead = [b for b in range(6) if b not in live]
+                assert np.all(P[..., t, dead] == 0.0), (seed, t)
+                if live:
+                    assert np.any(P[..., t, live] != 0.0), (seed, t)

@@ -94,3 +94,84 @@ def test_tile_index_shares_tiles():
     copies = render.mixture_poisson_ll(pixels[idx], mask[idx], iota[idx],
                                        bg[idx], comps, meta)
     torch.testing.assert_close(shared, copies, rtol=0, atol=0)
+
+
+def _mixed(rng, P=16):
+    """Ragged rows on 4 tiles (tile 2 without an active pixel): 5 star rows
+    (C = 2) then 4 galaxy-sized rows (C = 28), numpy."""
+    segments = ((5, 2), (4, 28))
+    star, gal = _inputs(rng, 5, 2, P), _inputs(rng, 4, 28, P)
+    tiles = [t[:4].copy() for t in star[:4]]
+    tiles[1][2] = 0.0                        # mask of tile 2
+    tiles[0] *= tiles[1]                     # pixels 0 where masked
+    tile_index = np.array([0, 2, 1, 3, 0, 3, 2, 0, 1])
+    comps = np.concatenate([star[4].reshape(-1, 6), gal[4].reshape(-1, 6)])
+    meta = np.concatenate([star[5], gal[5]])
+    return tiles, tile_index, segments, comps, meta
+
+
+def test_ragged_plain_matches_per_model_and_jax():
+    """Star and galaxy rows in one ragged call: each segment equals the
+    single-model twin and JAX's XLA reference on the same rows (f64)."""
+    tiles, idx, segments, comps, meta = _mixed(np.random.default_rng(5))
+    t = [torch.tensor(a) for a in tiles]
+    at = render.active_tiles(*t)
+    plan = render.row_plan(at, torch.tensor(idx), segments)
+    got = render.mixture_poisson_ll_ragged(at, plan, torch.tensor(comps),
+                                           torch.tensor(meta))
+    ref = jax.jit(lambda *a: jr.mixture_poisson_ll(*a, use_pallas=False))
+    r0 = k0 = 0
+    for n, C in segments:
+        rows = slice(r0, r0 + n)
+        seg = (comps[k0:k0 + n * C].reshape(n, C, 6), meta[rows])
+        one = render.mixture_poisson_ll(*t, *(torch.tensor(a) for a in seg),
+                                        tile_index=torch.tensor(idx[rows]))
+        torch.testing.assert_close(got[rows], one, rtol=0, atol=0)
+        want = np.asarray(ref(*(jnp.asarray(a[idx[rows]]) for a in tiles),
+                              *(jnp.asarray(a) for a in seg)))
+        np.testing.assert_allclose(got[rows].numpy(), want, rtol=1e-10)
+        r0, k0 = r0 + n, k0 + n * C
+    assert np.all(got.numpy()[idx == 2] == 0.0)   # the empty tile
+
+
+@pytest.mark.parametrize("max_warps", [1, 3, 8])
+def test_active_tiles_and_row_plan_rebuild_inputs(max_warps):
+    """The active-pixel lists rebuild the masks and the pixel values, and
+    the work items cover every row once, in blocks of at most `warps` rows
+    of one tile, heaviest first; rows past the tiles are grouped as -1."""
+    tiles, idx, segments, _, _ = _mixed(np.random.default_rng(6))
+    idx = np.concatenate([idx[:4], [4], idx[4:], [-1]])    # out of range
+    segments = ((6, 2), (5, 28))
+    at = render.active_tiles(*(torch.tensor(a) for a in tiles))
+    T, P = tiles[1].shape[:2]
+    mask = np.zeros((T, P, P))
+    x, iota, bg = (np.zeros((T, P, P)) for _ in range(3))
+    ptr, pos = at.ptr.numpy(), at.pos.numpy()
+    for t in range(T):
+        p = pos[ptr[t]:ptr[t + 1]]
+        mask[t, p >> 16, p & 0xffff] = 1.0
+        for dst, src in ((x, at.x), (iota, at.iota_a), (bg, at.bg_a)):
+            dst[t, p >> 16, p & 0xffff] = src.numpy()[ptr[t]:ptr[t + 1]]
+    np.testing.assert_array_equal(mask, tiles[1])
+    assert ptr[3] == ptr[2]                                # tile 2 empty
+    on = tiles[1] > 0
+    for got, want in ((x, tiles[0]), (iota, tiles[2]), (bg, tiles[3])):
+        np.testing.assert_array_equal(got[on], want[on])
+
+    plan = render.row_plan(at, torch.tensor(idx), segments, max_warps)
+    assert 1 <= plan.warps <= max_warps
+    seen = np.zeros(len(idx), int)
+    order = plan.order.numpy()
+    C = np.repeat([C for _, C in segments], [n for n, _ in segments])
+    n_act = np.diff(ptr)
+    cost = []
+    for tile, b, e in plan.work.numpy():
+        rows = order[b:e]
+        assert 0 < e - b <= plan.warps
+        seen[rows] += 1
+        want = np.where((idx[rows] >= 0) & (idx[rows] < T), idx[rows], -1)
+        assert np.all(want == tile)
+        cost.append(0 if tile < 0 else int((C[rows] * n_act[tile]).sum()))
+    assert np.all(seen == 1)
+    assert cost == sorted(cost, reverse=True)
+    np.testing.assert_array_equal(np.diff(plan.comp_ptr.numpy()), C)
