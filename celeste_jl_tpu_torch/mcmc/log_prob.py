@@ -33,8 +33,7 @@ from ..models.params import GAL_ETA
 from ..models.priors import prior as _prior_params
 from ..models.psf import psf_alphas, psf_covs, psf_mus
 from ..ops import render
-from ..ops.render import (mixture_poisson_ll, mixture_poisson_ll_plain,
-                          pack_mixture)
+from ..ops.render import pack_mixture
 from ..vi.elbo import PriorConstants, default_prior
 
 LN2PI = float(np.log(2.0 * np.pi))
@@ -257,21 +256,13 @@ def row_inputs(ln: Lanes, th, is_star):
 
 
 def fused_rows(ln: Lanes, th, is_star):
-    """K4's arguments for the lanes th (L, D) of one model: the shared
-    tiles, comps (L B, C, 6), meta (L B, 4) and the row -> tile index
-    (L B,), in the order `mixture_poisson_ll` takes them."""
+    """The dense entry's arguments for the lanes th (L, D) of one model:
+    the shared tiles, comps (L B, C, 6), meta (L B, 4) and the row -> tile
+    index (L B,), in the order `mixture_poisson_ll` takes them (for tests
+    and chip_smoke.py; the log densities go through `blocks_loglike`)."""
     t = ln.tiles.k4
     return (t.pixels, t.mask, t.iota, t.bg, *row_inputs(ln, th, is_star),
             ln.tile_index)
-
-
-def lane_loglike(th, is_star, ln: Lanes, plain=False):
-    """Render + Poisson score of every lane and band of one model in one K4
-    launch (ops/render; its plain twin if `plain`, on any device), lgamma
-    terms subtracted, (L,)."""
-    ll = (mixture_poisson_ll_plain if plain else mixture_poisson_ll)(
-        *fused_rows(ln, th, is_star))
-    return torch.sum(ll.reshape(th.shape[0], -1), dim=-1) - ln.lgam
 
 
 class LaneBlocks(NamedTuple):
@@ -314,12 +305,13 @@ def blocks_loglike(ths, lb: LaneBlocks, plain=False):
 
 
 def star_loglike(th, tgt: SourceTarget, src=None, tiles=None):
-    """(mcmc_functions.jl:109-185 semantics on a patch tile), (L,)."""
-    return lane_loglike(th, True, lanes(tgt, src, tiles))
+    """(mcmc_functions.jl:109-185 semantics on a patch tile), (L,): one K4
+    launch over every lane and band."""
+    return blocks_loglike([th], lane_blocks(tgt, [(True, src)], tiles))[0]
 
 
 def gal_loglike(th, tgt: SourceTarget, src=None, tiles=None):
-    return lane_loglike(th, False, lanes(tgt, src, tiles))
+    return blocks_loglike([th], lane_blocks(tgt, [(False, src)], tiles))[0]
 
 
 # ---------------------------------------------------------------------------

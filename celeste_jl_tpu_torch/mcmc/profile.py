@@ -1,7 +1,7 @@
 """Where the MCMC slice's time goes, on one CUDA device.
 
     python -m celeste_jl_tpu_torch.mcmc.profile [--sources 64] [--temps 4]
-        [--chain 2] [--device cuda]
+        [--chain 2] [--device cuda] [--k4-warps W]
 
 Runs run_ais_batched on benchmark/bench_mcmc.py's scene (f32, 10 AIS
 samples per source, both models) once to warm up, once timed and once
@@ -10,7 +10,10 @@ the production program does the same kind of work, so per-sweep figures
 carry over.
 Prints the wall time per sweep, host reads and K4 launches per sweep, the
 ops dispatched per likelihood evaluation, the device's busy share, K4's
-share of device time, and the top operators by device and by host time.
+share of device time and its mean time a launch, and the top operators by
+device and by host time. --k4-warps sets the most rows (warps) of a K4
+block for the run (ops/render.K4_WARPS), to compare block widths on the
+AIS's own launches.
 """
 
 import argparse
@@ -33,7 +36,9 @@ def main(argv=None):
     ap.add_argument("--temps", type=int, default=4)
     ap.add_argument("--chain", type=int, default=2)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--k4-warps", type=int, default=render.K4_WARPS)
     a = ap.parse_args(argv)
+    render.K4_WARPS = a.k4_warps
     cuda = a.device == "cuda"
     if cuda and not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
@@ -74,7 +79,8 @@ def main(argv=None):
                 if e.key == "aten::_local_scalar_dense")
     name = torch.cuda.get_device_name(0) if cuda else "cpu"
     print(f"device {name}; {a.sources} sources, {sweeps} sweeps "
-          f"({a.temps - 1} AIS steps + {a.chain} chain steps), f32")
+          f"({a.temps - 1} AIS steps + {a.chain} chain steps), f32; K4 "
+          f"blocks of at most {render.K4_WARPS} warps")
     print(f"wall {plain_wall:.3f} s = {plain_wall / sweeps:.3f} s per sweep "
           f"(under the profiler {wall:.3f} s); K4 launches {launches} "
           f"({launches / sweeps:.1f} per sweep); "
@@ -88,7 +94,8 @@ def main(argv=None):
         print(f"device time {device_total:.3f} s = busy share "
               f"{device_total / plain_wall:.4f} of the unprofiled wall "
               f"({device_total / wall:.4f} profiled); K4 {k4:.4f} s = "
-              f"{k4 / max(device_total, 1e-12):.4f} of device time")
+              f"{k4 / max(device_total, 1e-12):.4f} of device time, "
+              f"{k4 / max(launches, 1) * 1e3:.4f} ms a launch")
         print(events.table(sort_by="self_cuda_time_total", row_limit=15))
     print(events.table(sort_by="self_cpu_time_total", row_limit=20))
 

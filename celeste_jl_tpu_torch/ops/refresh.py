@@ -176,7 +176,11 @@ def pixel_terms(mu, lv, z, pch, cl4, off, pixels, mask, iota, a0, b0,
     `band_pixel_rows` builds (models/mixture_derivs): star components
     (the first ks) feed theta rows 0, 1 through b = 1, 2 only; galaxy
     components rows 0, 1 through b = 1, 2, row 2 through b = 0, rows 3..5
-    through b = 0, 3, 4, 5. Other pch entries must be 0.
+    through b = 0, 3, 4, 5. So pch must be `band_pixel_rows`' (every
+    other entry 0, as tests/test_torch_refresh.py asserts of it): the
+    wrapper does not check the other entries, which would cost a
+    device-to-host read a call, and the kernel does not read them, so a
+    pch that is not 0 there gives other results than the twin's.
 
     Tests: the twin against the JAX package on the CPU in
     tests/test_torch_refresh.py (with the chain coefficients' zero

@@ -13,19 +13,20 @@ with q_c the precision quadratic form at the 1-based pixel coordinates
 out, as in the JAX function. There is no clamp on the rate.
 
 Two entry points:
+- `mixture_poisson_ll_ragged(tiles, plan, comps, meta)`, the one the MCMC
+  path uses: rows of any component counts in one launch; `tiles`
+  (`active_tiles`) holds each tile's active pixels, made once per set of
+  tiles, and `plan` (`row_plan`) the rows' tiles and component counts,
+  made once per set of rows; comps are packed ragged, (sum_r C_r, 6);
 - `mixture_poisson_ll(pixels, mask, iota, bg, comps, meta, tile_index)`,
-  one model's rows (R, C, 6) on dense tiles;
-- `mixture_poisson_ll_ragged(tiles, plan, comps, meta)`, rows of any
-  component counts in one launch: `tiles` (`active_tiles`) holds each
-  tile's active pixels, made once per set of tiles, and `plan`
-  (`row_plan`) the rows' tiles and component counts, made once per set of
-  rows; comps are packed ragged, (sum_r C_r, 6).
-On CUDA tensors both launch the CUDA kernel csrc/render.cu (the first
-builds the tiles and the plan on each call); on CPU tensors they run the
-plain torch twin `mixture_poisson_ll_plain` (the JAX package's
-`_xla_reference`), once per segment of rows with one C. Unlike the TPU
-kernel, any C and any tile size run (the TPU's C <= 8 and (P*P) % 128
-gates are not carried over).
+  one model's rows (R, C, 6) on dense tiles: a thin adapter for tests and
+  chip_smoke.py that builds the tiles and the plan on every call (four
+  device-to-host reads), not for hot loops.
+On CUDA tensors both launch the CUDA kernel csrc/render.cu; on CPU
+tensors they run the plain torch twin `mixture_poisson_ll_plain` (the JAX
+package's `_xla_reference`), once per segment of rows with one C. Unlike
+the TPU kernel, any C and any tile size run (the TPU's C <= 8 and
+(P*P) % 128 gates are not carried over).
 
 Tests: the twin against the JAX package on the CPU in
 tests/test_torch_render.py (`python -m pytest tests/test_torch_render.py`);
@@ -43,8 +44,11 @@ from . import _build
 
 LN2PI = math.log(2.0 * math.pi)
 # most rows (one warp each) in a block of the kernel: a block stages its
-# tile's active pixels once for its rows
-K4_WARPS = 8
+# tile's active pixels once for its rows. Read by `row_plan` when it is
+# called (python -m celeste_jl_tpu_torch.mcmc.profile --k4-warps W times
+# the AIS at another width). 4: K4's mean time a launch in the AIS on an
+# H100 was 0.1145 ms at 4, 0.1192 at 8 and 0.1202 at 16 (mcmc/profile.py).
+K4_WARPS = 4
 
 
 def pack_mixture(means, covs, weights):
@@ -151,17 +155,18 @@ class RowPlan(NamedTuple):
     order: torch.Tensor        # (R,) int32 rows grouped by tile
     work: torch.Tensor         # (n_work, 3) int32
     warps: int                 # warps (rows) a block
+    n_tiles: int               # T of the ActiveTiles it was made for
 
 
-def row_plan(tiles: ActiveTiles, tile_index, segments, max_warps=K4_WARPS):
+def row_plan(tiles: ActiveTiles, tile_index, segments):
     """The RowPlan of rows (R,) -> tile of `tiles`, made of the segments
     ((rows, C), ...). Plain torch on tile_index's device (two host reads).
 
-    A tile's rows go to the fewest work items of at most max_warps rows,
+    A tile's rows go to the fewest work items of at most K4_WARPS rows,
     and a block has as many warps as the busiest tile's items need (the
-    AIS's 10, 20 or 40 rows a tile: 5, 7 or 8 warps). The items are
-    ordered by their work (active pixels x components), heaviest first,
-    so that the launch's last blocks are short ones."""
+    AIS's 10, 20 or 40 rows a tile: 3, 5 or 10 items of 4 warps). The
+    items are ordered by their work (active pixels x components),
+    heaviest first, so that the launch's last blocks are short ones."""
     dev = tile_index.device
     R = tile_index.numel()
     n_tiles = tiles.ptr.numel() - 1
@@ -174,7 +179,7 @@ def row_plan(tiles: ActiveTiles, tile_index, segments, max_warps=K4_WARPS):
     order = torch.argsort(group, stable=True)
     count = torch.bincount(group, minlength=n_tiles + 1)
     n_max = int(count.max()) if R else 0
-    warps = -(-n_max // -(-n_max // max_warps)) if n_max else 1
+    warps = -(-n_max // -(-n_max // K4_WARPS)) if n_max else 1
     first = torch.cumsum(count, 0) - count
     n_items = (count + warps - 1) // warps
     n_work = int(n_items.sum())
@@ -198,7 +203,7 @@ def row_plan(tiles: ActiveTiles, tile_index, segments, max_warps=K4_WARPS):
     comp_ptr[1:] = torch.cumsum(sizes, 0)
     return RowPlan(tile_index, tuple(segments), comp_ptr,
                    order.to(torch.int32),
-                   work[heavy].to(torch.int32).contiguous(), warps)
+                   work[heavy].to(torch.int32).contiguous(), warps, n_tiles)
 
 
 def mixture_poisson_ll_ragged_plain(tiles: ActiveTiles, plan: RowPlan, comps,
@@ -219,24 +224,45 @@ def mixture_poisson_ll_ragged(tiles: ActiveTiles, plan: RowPlan, comps, meta):
     """Per-row log-likelihood of the rows of `plan`, (R,): comps
     (sum_r C_r, 6) packed in row order, meta (R, 4). csrc/render.cu in one
     launch on CUDA tensors (f32 or f64), the plain twin on CPU tensors.
-    Anything else raises; a row whose tile index is outside [0, T) comes
-    back NaN, a row whose tile has no active pixel 0."""
+    A row whose tile index is outside [0, T) comes back NaN, a row whose
+    tile has no active pixel 0.
+
+    Raises ValueError unless every tensor of comps, meta, tiles and plan
+    lies on comps' device with the type and shape the kernel reads (the
+    float fields in comps' type, the indices int32), plan was made for
+    these tiles and comps holds plan's components. The index values are
+    row_plan's and active_tiles' and are not re-read on the host: plan
+    and tiles come from those functions."""
     if comps.device.type == "cpu":
         return mixture_poisson_ll_ragged_plain(tiles, plan, comps, meta)
-    dtype = comps.dtype
-    _build.check_cuda(dtype, comps.device)
-    R = plan.order.numel()
-    n_comps = sum(n * C for n, C in plan.segments)
-    if (comps.shape != (n_comps, 6) or meta.shape != (R, 4)
-            or tiles.x.dtype != dtype):
-        raise ValueError(
-            f"mixture_poisson_ll_ragged: comps {tuple(comps.shape)} (want "
-            f"({n_comps}, 6)), meta {tuple(meta.shape)} (want ({R}, 4)), "
-            f"tiles {tiles.x.dtype}, rows {comps.dtype}")
-    out = torch.empty(R, dtype=dtype, device=comps.device)
+    dtype, dev = comps.dtype, comps.device
+    _build.check_cuda(dtype, dev)
+    R, T, n = plan.order.numel(), tiles.ptr.numel() - 1, tiles.pos.numel()
+    n_comps = sum(n_r * C for n_r, C in plan.segments)
+    i32 = torch.int32
+    for name, t, want_dtype, shape in (
+            ("comps", comps, dtype, (n_comps, 6)),
+            ("meta", meta, dtype, (R, 4)),
+            ("tiles.ptr", tiles.ptr, i32, (T + 1,)),
+            ("tiles.pos", tiles.pos, i32, (n,)),
+            ("tiles.x", tiles.x, dtype, (n,)),
+            ("tiles.iota_a", tiles.iota_a, dtype, (n,)),
+            ("tiles.bg_a", tiles.bg_a, dtype, (n,)),
+            ("plan.comp_ptr", plan.comp_ptr, i32, (R + 1,)),
+            ("plan.order", plan.order, i32, (R,)),
+            ("plan.work", plan.work, i32, (plan.work.shape[0], 3))):
+        if t.dtype != want_dtype or t.device != dev or t.shape != shape:
+            raise ValueError(
+                f"mixture_poisson_ll_ragged: {name} {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}, want {want_dtype} {shape} "
+                f"on {dev}")
+    if plan.n_tiles != T:
+        raise ValueError(f"mixture_poisson_ll_ragged: plan made for "
+                         f"{plan.n_tiles} tiles, given {T}")
+    out = torch.empty(R, dtype=dtype, device=dev)
     if R:
         _build.launch("mixture_poisson_ll", dtype, comps.contiguous(),
-                      plan.comp_ptr, meta.to(dtype).contiguous(), tiles.ptr,
+                      plan.comp_ptr, meta.contiguous(), tiles.ptr,
                       tiles.pos, tiles.x, tiles.iota_a, tiles.bg_a,
                       plan.order, plan.work, out, plan.work.shape[0],
                       plan.warps)
@@ -251,7 +277,12 @@ def mixture_poisson_ll(pixels, mask, iota, bg, comps, meta, tile_index=None):
     tensors. Anything else raises; a row whose tile index is outside
     [0, T) comes back NaN (checked on the card, where the index lives).
     `mixture_poisson_ll.launches` counts the kernel's launches, from
-    either entry point."""
+    either entry point.
+
+    An adapter for tests and chip_smoke.py: it rebuilds the active-pixel
+    lists and the row plan on every call (four device-to-host reads), so
+    a loop that scores the same tiles again makes them once and calls
+    `mixture_poisson_ll_ragged`, as the MCMC path does."""
     if comps.device.type == "cpu":
         return mixture_poisson_ll_plain(pixels, mask, iota, bg, comps, meta,
                                         tile_index)
@@ -272,7 +303,7 @@ def mixture_poisson_ll(pixels, mask, iota, bg, comps, meta, tile_index=None):
     tiles = active_tiles(*(t.to(dtype) for t in (pixels, mask, iota, bg)))
     plan = row_plan(tiles, tile_index, ((R, C),))
     return mixture_poisson_ll_ragged(tiles, plan, comps.reshape(R * C, 6),
-                                     meta)
+                                     meta.to(dtype))
 
 
 mixture_poisson_ll.launches = 0

@@ -7,9 +7,8 @@ Phases, one line each; the first failure exits non-zero:
   1. set-up: needs a CUDA device, prints the card's name and power limit
      (nvidia-smi), builds the kernels from csrc/ with nvcc;
   2. K1-K3 against their plain torch twins on the card, at the main path's
-     shapes, in f64 (tight) and f32 (the working type), with median times:
-     a kernel's on the card alone (timed_ms's queued calls) and with the
-     host's enqueue, the twin's as a caller sees it;
+     shapes, in f64 (tight) and f32 (the working type), with median times
+     as a caller sees them (timed_ms) and a kernel's on the card alone;
   3. the slice: synthetic_patch_batch(1024, tile=32, seed=1) fitted by
      fit_sources_compacted with bench.py's configuration in f32; every ELBO
      finite and every kernel launched; fits/s, mean iterations, converged
@@ -21,10 +20,15 @@ Phases, one line each; the first failure exits non-zero:
   5. the compiled shape of the redesigned kernels K1 and K4 (registers,
      local memory, shared memory, blocks per SM; nvcc's -Xptxas -v
      lines); the MCMC slice's kernel K4 (the fused render + Poisson score)
-     against its twin at the AIS shapes (64 sources x 10 samples, 32x32
-     tiles, plus 16x16 and 64x64) for each model through the single-model
-     entry and for both models in one ragged launch, with times at several
-     warps a block, the bound and the exp floor; and the split Jacobi sweep
+     against its twin: on radius-8 patches (64 sources x 10 samples on
+     32x32 tiles, plus 16x16 and 64x64) for each model through the
+     single-model entry and for both models in one ragged launch, timed
+     for the galaxy rows on 32x32 (the earlier shape of the kernel's
+     record); and on the AIS's own patches (patch_radii, the neighbours'
+     background, the largest source's tile: 64x64), both models in one
+     launch as the evaluator scores them once (m = 1) and in the
+     step-out's two copies (m = 2), timed with the bound and the exp floor
+     (the m = 1 launch is the kernel's record); and the split Jacobi sweep
      K2a + K2b against its twin and against K2, with times;
   6. the MCMC slice at full width: run_ais_batched on bench_mcmc.py's
      64-source scene with the production AIS program (50 temperatures x
@@ -79,10 +83,9 @@ PEAK_BYTES = 3.35e12
 # the SFUs' exp2 rate: 16 a clock per SM (CUDA programming guide's
 # throughput table, compute capability 9.0), 132 SMs, 1.98 GHz boost
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
-# the spin before each timed call (timed_ms): ~1 ms at the H100's clock
+# the spin before each call timed on the card alone (timed_ms): ~1 ms at
+# the H100's clock
 SPIN_CYCLES = 2_000_000
-# warps a block of K4 timed in phase 5 (render.K4_WARPS is the default)
-K4_WARPS_TRIED = (4, 8, 16)
 
 
 class PhaseError(Exception):
@@ -94,20 +97,20 @@ def check(ok, msg):
         raise PhaseError(msg)
 
 
-def timed_ms(fn, torch, reps=10, queued=True):
-    """Median time of fn() on the card, ms: CUDA events around each call,
-    after one warm-up call. queued: a spin kernel of ~1 ms runs before
-    each call, so the host has enqueued the call by the time the card
-    reaches it and the events time the card's work alone; queued=False
-    also times the host's enqueue where it is slower than the card, as a
-    caller that waits for each call sees it."""
+def timed_ms(fn, torch, reps=10, spin=False):
+    """Median time of fn(), ms: CUDA events around each call, after one
+    warm-up call, as a caller that waits for each call sees it (the host's
+    enqueue counts where it is slower than the card: the `ms` of the
+    kernels' record). spin: a spin kernel of ~1 ms runs before each call,
+    so the host has enqueued the call by the time the card reaches it and
+    the events time the card's work alone (`device_ms`)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        if queued:
+        if spin:
             torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
@@ -228,8 +231,8 @@ def phase_kernels(device="cuda", k1_sets=((1024, 32), (64, 16), (16, 128)),
     from celeste_jl_tpu_torch.ops import eigh, refresh, tr
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    time_fn = ((lambda fn, queued=True: timed_ms(fn, torch, queued=queued))
-               if device == "cuda" else (lambda fn, queued=True: float("nan")))
+    time_fn = ((lambda fn, spin=False: timed_ms(fn, torch, spin=spin))
+               if device == "cuda" else (lambda fn, spin=False: float("nan")))
     rec = {}
 
     # K1: the refresh pixel pass
@@ -252,9 +255,9 @@ def phase_kernels(device="cuda", k1_sets=((1024, 32), (64, 16), (16, 128)),
             if dtype == torch.float32 and i == 0:
                 kernel = lambda: refresh.pixel_terms(*rows, ks=ks,
                                                      pdims=pdims)
-                ms, host_ms = time_fn(kernel), time_fn(kernel, queued=False)
+                ms, device_ms = time_fn(kernel), time_fn(kernel, spin=True)
                 plain_ms = time_fn(lambda: refresh.pixel_terms_plain(
-                    *rows, ks=ks, pdims=pdims), queued=False)
+                    *rows, ks=ks, pdims=pdims))
                 # pass 1's work on the active pixels, ~(60 C + 400) flops
                 # each (csrc/refresh.cu); every input read and output
                 # written once
@@ -263,11 +266,12 @@ def phase_kernels(device="cuda", k1_sets=((1024, 32), (64, 16), (16, 128)),
                 nbytes = 4 * (G * C * 42 + G * 6 + 5 * G * N
                               + G * C * 15 + G * 72)
                 rec["refresh"] = dict(max_abs_err=abs_err, ms=ms,
+                                      device_ms=device_ms,
                                       plain_ms=plain_ms, library_ms=None,
                                       **bound(active * (60 * C + 400),
                                               nbytes))
-                msg += (f"; kernel {ms:.3f} ms ({host_ms:.3f} with the "
-                        f"host's enqueue), plain {plain_ms:.3f} ms")
+                msg += (f"; kernel {ms:.3f} ms ({device_ms:.3f} on the card "
+                        f"alone), plain {plain_ms:.3f} ms")
             print(msg, flush=True)
 
     # K2: one parallel-Jacobi sweep, and jacobi_eigh through it
@@ -318,14 +322,14 @@ def phase_kernels(device="cuda", k1_sets=((1024, 32), (64, 16), (16, 128)),
               msg)
         if dtype == torch.float32:
             kernel = lambda: eigh.jacobi_sweep(H, eye)
-            ms, host_ms = time_fn(kernel), time_fn(kernel, queued=False)
-            plain_ms = time_fn(lambda: eigh.jacobi_sweep_plain(H, eye),
-                               queued=False)
+            ms, device_ms = time_fn(kernel), time_fn(kernel, spin=True)
+            plain_ms = time_fn(lambda: eigh.jacobi_sweep_plain(H, eye))
             rec["jacobi_sweep"] = dict(max_abs_err=abs_err, ms=ms,
+                                       device_ms=device_ms,
                                        plain_ms=plain_ms, library_ms=None,
                                        **sweep_bound(n_mats, 42, "aq"))
-            msg += (f"; kernel {ms:.3f} ms ({host_ms:.3f} with the host's "
-                    f"enqueue), plain {plain_ms:.3f} ms")
+            msg += (f"; kernel {ms:.3f} ms ({device_ms:.3f} on the card "
+                    f"alone), plain {plain_ms:.3f} ms")
         print(msg, flush=True)
 
     # K3: the trust-region subproblem
@@ -358,17 +362,17 @@ def phase_kernels(device="cuda", k1_sets=((1024, 32), (64, 16), (16, 128)),
         check(ok, msg)
         if dtype == torch.float32:
             kernel = lambda: tr.tr_subproblem(gq, w, delta, 48)
-            ms, host_ms = time_fn(kernel), time_fn(kernel, queued=False)
+            ms, device_ms = time_fn(kernel), time_fn(kernel, spin=True)
             plain_ms = time_fn(lambda: tr.tr_subproblem_plain(gq, w, delta,
-                                                              48),
-                               queued=False)
+                                                              48))
             # ~5 flops per coordinate per bisection; gq, w, delta in,
             # p and pred out
             rec["tr_subproblem"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, library_ms=None,
                 **bound(n_mats * 48 * 42 * 5, 4 * n_mats * (3 * 42 + 2)))
-            msg += (f"; kernel {ms:.3f} ms ({host_ms:.3f} with the host's "
-                    f"enqueue), plain {plain_ms:.3f} ms")
+            msg += (f"; kernel {ms:.3f} ms ({device_ms:.3f} on the card "
+                    f"alone), plain {plain_ms:.3f} ms")
         print(msg, flush=True)
     print("phase 2 ok: K1, K2, K3 agree with their plain twins", flush=True)
     return rec
@@ -484,26 +488,41 @@ def mcmc_scene(device, n_sources=64):
     return ais_bench_scene(n_sources, device=device)
 
 
-def k4_inputs(scene, P, device, dtype, n_samples=10, seed=5):
-    """K4's inputs at the AIS shapes: every source of the scene on its
-    P x P tiles (bench_mcmc.py's radius 8), n_samples prior draws per
-    source of each model, as the AIS's first evaluation scores them.
-    Returns the LaneBlocks of the star and galaxy blocks and their lanes."""
+def k4_inputs(scene, device, dtype, n_samples=10, m=1, P=None, seed=5):
+    """K4's inputs as the AIS's evaluator makes them: n_samples prior draws
+    per source of each model, in m stacked copies (m = 2: the step-out
+    scores both ends of every lane at once). P None: the AIS's own patches,
+    as run_ais_batched makes them (patch_radii at bench_mcmc.py's least
+    radius of 8 px, the neighbours' background, every source on the
+    largest source's tile); P given: every source at radius 8 on P x P
+    tiles, no neighbour. Returns the LaneBlocks of the star and galaxy
+    blocks and their lanes' parameters."""
     import torch
 
     from celeste_jl_tpu_torch.mcmc import infer, log_prob
+    from celeste_jl_tpu_torch.parallel.common import _tile_for_radius
+    from celeste_jl_tpu_torch.parallel.state import find_neighbors, patch_radii
+    from celeste_jl_tpu_torch.utils.config import Config
     from celeste_jl_tpu_torch.vi.elbo import default_prior
 
     images, catalog = scene
     S = len(catalog)
-    tgt, _ = infer.chunk_target(catalog, images, list(range(S)), {},
-                                [8.0] * S, P, device=device, dtype=dtype)
+    if P is None:
+        radii = patch_radii(catalog, images, Config(min_radius_pix=8.0))
+        neighbors = find_neighbors(catalog, radii, images)
+        P = max(_tile_for_radius(r) for r in radii)
+    else:
+        radii, neighbors = [8.0] * S, {}
+    tgt, _ = infer.chunk_target(catalog, images, list(range(S)), neighbors,
+                                radii, P, device=device, dtype=dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     prior = default_prior(torch.device(device), dtype)
-    ths = [log_prob.sample_star_prior(gen, S * n_samples, prior),
-           log_prob.sample_gal_prior(gen, S * n_samples, prior)]
+    L = m * S * n_samples
+    ths = [log_prob.sample_star_prior(gen, L, prior),
+           log_prob.sample_gal_prior(gen, L, prior)]
     src = torch.arange(S, device=device).repeat_interleave(n_samples)
-    return log_prob.lane_blocks(tgt, [(True, src), (False, src)]), ths
+    return (log_prob.lane_blocks(tgt, [(True, src.repeat(m)),
+                                       (False, src.repeat(m))]), ths)
 
 
 def k4_launch(lb, ths, blocks):
@@ -517,33 +536,43 @@ def k4_launch(lb, ths, blocks):
     rows = [log_prob.row_inputs(lb.lanes[k], ths[k], lb.is_star[k])
             for k in blocks]
     tiles = lb.lanes[0].tiles.k4
-    plan = render.row_plan(
-        tiles, torch.cat([lb.lanes[k].tile_index for k in blocks]),
-        tuple((m.shape[0], c.shape[1]) for c, m in rows))
+    plan = (lb.plan if tuple(blocks) == tuple(range(len(lb.lanes))) else
+            render.row_plan(
+                tiles, torch.cat([lb.lanes[k].tile_index for k in blocks]),
+                tuple((m.shape[0], c.shape[1]) for c, m in rows)))
     return (tiles, plan, torch.cat([c.reshape(-1, 6) for c, _ in rows]),
             torch.cat([m for _, m in rows]))
+
+
+def k4_active(args):
+    """Active pixels of each row of K4's launch `args`, (R,) float64."""
+    tiles, plan, _, _ = args
+    n_act = (tiles.ptr[1:] - tiles.ptr[:-1]).double()
+    return n_act[plan.tile_index.long()]
 
 
 def k4_work(args):
     """Active pixels x components summed over the rows of K4's launch
     `args`: the accurate exps it evaluates."""
-    tiles, plan, _, _ = args
-    n_act = (tiles.ptr[1:] - tiles.ptr[:-1]).double()
+    plan = args[1]
     C = (plan.comp_ptr[1:] - plan.comp_ptr[:-1]).double()
-    return float((C * n_act[plan.tile_index.long()]).sum())
+    return float((C * k4_active(args)).sum())
 
 
 def k4_bound(args):
     """K4's bound: ~12 flops per component per active pixel of each row
     (the exps and logs not counted), ~8 per active pixel for the score;
-    the shared tiles, comps, meta, index and output moved once each. Also
-    its exp floor: the accurate exps alone at the SFUs' rate (16 a clock
-    per SM, 132 SMs, the 1.98 GHz boost clock)."""
+    the tiles' active-pixel lists, comps, meta, the plan's indices and the
+    output moved once each. Also its exp floor: the accurate exps alone at
+    the SFUs' rate (16 a clock per SM, 132 SMs, the 1.98 GHz boost
+    clock)."""
     tiles, plan, comps, meta = args
-    n_act = (tiles.ptr[1:] - tiles.ptr[:-1]).double()
-    act = float(n_act[plan.tile_index.long()].sum())
-    nbytes = ((4 * tiles.pixels.numel() + comps.numel() + meta.numel()) * 4
-              + meta.shape[0] * 8)
+    act = float(k4_active(args).sum())
+    R = meta.shape[0]
+    nbytes = (comps.element_size() * (3 * tiles.x.numel() + comps.numel()
+                                      + meta.numel() + R)
+              + 4 * (tiles.pos.numel() + tiles.ptr.numel()
+                     + plan.comp_ptr.numel() + R + plan.work.numel()))
     rec = bound(12 * k4_work(args) + 8 * act, nbytes)
     rec["exp_floor_ms"] = k4_work(args) / SFU_EXP_PER_S * 1e3
     return rec
@@ -567,17 +596,20 @@ def kernel_report(dtype):
 
 def phase_new_kernels(scene, device="cuda", tiles=(32, 16, 64),
                       n_samples=10, n_mats=1024):
-    """K4 against its twin at the AIS shapes, one model at a time (through
-    the single-model entry) and both in one launch, and the split sweep
-    K2a+K2b against its twin and against K2. Returns {name: record}."""
+    """K4 against its twin: on radius-8 patches at each tile size of
+    `tiles`, one model at a time (through the single-model entry) and
+    both in one launch; on the AIS's own patches, both models in one
+    launch as the evaluator makes it (m = 1, the kernel's record) and
+    for the step-out (m = 2). Then the split sweep K2a+K2b against its
+    twin and against K2. Returns {name: record}."""
     import torch
 
     from celeste_jl_tpu_torch.mcmc import log_prob
     from celeste_jl_tpu_torch.ops import _build, eigh, render
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    time_fn = ((lambda fn, queued=True: timed_ms(fn, torch, queued=queued))
-               if device == "cuda" else (lambda fn, queued=True: float("nan")))
+    time_fn = ((lambda fn, spin=False: timed_ms(fn, torch, spin=spin))
+               if device == "cuda" else (lambda fn, spin=False: float("nan")))
     rec = {}
     if device == "cuda":
         for dtype in (torch.float32, torch.float64):
@@ -586,12 +618,15 @@ def phase_new_kernels(scene, device="cuda", tiles=(32, 16, 64),
         for kernel in ("refresh_kernel", "render_ll_kernel"):
             for line in _build.ptxas_lines(kernel):
                 print(f"phase 5: ptxas {line}", flush=True)
+    models = (("star", (0,)), ("galaxy", (1,)), ("both", (0, 1)))
+    # (P, m): radius-8 patches on P x P tiles, then the AIS's own patches
+    # as its evaluator scores them once and in the step-out's two copies
+    cases = [(P, 1) for P in tiles] + [(None, 1), (None, 2)]
     for dtype, tol in ((torch.float64, K4_F64_TOL),
                        (torch.float32, K4_F32_TOL)):
-        for P in tiles:
-            lb, ths = k4_inputs(scene, P, device, dtype, n_samples)
-            for label, blocks in (("star", (0,)), ("galaxy", (1,)),
-                                  ("both", (0, 1))):
+        for P, m in cases:
+            lb, ths = k4_inputs(scene, device, dtype, n_samples, m, P)
+            for label, blocks in models if P else models[2:]:
                 args = k4_launch(lb, ths, blocks)
                 if label == "both":
                     got = render.mixture_poisson_ll_ragged(*args)
@@ -604,10 +639,14 @@ def phase_new_kernels(scene, device="cuda", tiles=(32, 16, 64),
                 d = (got - want).double().abs()
                 err = float((d / want.double().abs().clamp(min=1e-30)).max())
                 tl, plan, comps, _ = args
+                where = (f"radius 8, P={P}" if P else
+                         f"AIS patches m={m}, P={tl.pixels.shape[-1]}, "
+                         f"{float(k4_active(args).mean()):.1f} active pixels a row")
                 msg = (f"K4 mixture_poisson_ll {label} {str(dtype)[6:]} R="
                        f"{plan.order.numel()} C="
-                       f"{'/'.join(str(C) for _, C in plan.segments)} P={P}: "
-                       f"max rel err per row {err:.3g} (tol {tol:g})")
+                       f"{'/'.join(str(C) for _, C in plan.segments)} "
+                       f"({where}): max rel err per row {err:.3g} (tol "
+                       f"{tol:g})")
                 check(bool(torch.all(torch.isfinite(got))) and err < tol, msg)
                 if dtype == torch.float32:
                     # which f32 route carries the difference: each against
@@ -620,34 +659,27 @@ def phase_new_kernels(scene, device="cuda", tiles=(32, 16, 64),
                                            / w64.abs().clamp(min=1e-30)).max())
                     msg += (f"; vs f64: kernel {e64(got):.3g}, twin "
                             f"{e64(want):.3g}")
-                if (dtype == torch.float32 and P == tiles[0]
-                        and label != "star"):
+                if dtype == torch.float32 and (
+                        P is None or (P == tiles[0] and label != "star")):
                     # the kernel alone: tiles and row plan made beforehand,
                     # as the AIS makes them once per set of lanes
-                    times = {}
-                    for w in K4_WARPS_TRIED:
-                        plan_w = render.row_plan(tl, plan.tile_index,
-                                                 plan.segments, w)
-                        times[w] = time_fn(
-                            lambda: render.mixture_poisson_ll_ragged(
-                                tl, plan_w, comps, args[3]))
-                    ms = times[render.K4_WARPS]
-                    host_ms = time_fn(lambda: render.mixture_poisson_ll_ragged(
-                        *args), queued=False)
+                    kernel = lambda: render.mixture_poisson_ll_ragged(*args)
+                    ms, device_ms = time_fn(kernel), time_fn(kernel, spin=True)
                     b = k4_bound(args)
-                    msg += ("; kernel ms by most warps a block " + ", ".join(
-                        f"{w}: {t:.4f}" for w, t in times.items())
-                        + f" ({host_ms:.4f} with the host's enqueue); bound "
-                        f"{b['bound_ms']:.5f} ms, exp floor "
-                        f"{b['exp_floor_ms']:.5f} ms")
-                    if label == "galaxy":
+                    msg += (f"; kernel {ms:.4f} ms ({device_ms:.4f} on the "
+                            f"card alone; {plan.work.shape[0]} blocks of at "
+                            f"most {plan.warps} warps); bound "
+                            f"{b['bound_ms']:.5f} ms, exp floor "
+                            f"{b['exp_floor_ms']:.5f} ms")
+                    if P is None and m == 1:
                         plain_ms = time_fn(
                             lambda: render.mixture_poisson_ll_ragged_plain(
-                                *args), queued=False)
+                                *args))
                         b.pop("exp_floor_ms")
                         rec["mixture_poisson_ll"] = dict(
                             max_abs_err=float(d.max()), ms=ms,
-                            plain_ms=plain_ms, library_ms=None, **b)
+                            device_ms=device_ms, plain_ms=plain_ms,
+                            library_ms=None, **b)
                         msg += f", plain {plain_ms:.3f} ms"
                 print(msg, flush=True)
 
@@ -696,13 +728,14 @@ def phase_new_kernels(scene, device="cuda", tiles=(32, 16, 64),
                      lambda: eigh.jacobi_replay_q_plain(eye, cs), "q",
                      float((Q1 - eigh.jacobi_replay_q_plain(eye, cs))
                            .abs().max()))):
-                ms, host_ms = time_fn(fn), time_fn(fn, queued=False)
-                plain_ms = time_fn(pfn, queued=False)
+                ms, device_ms = time_fn(fn), time_fn(fn, spin=True)
+                plain_ms = time_fn(pfn)
                 rec[name] = dict(max_abs_err=abs_err, ms=ms,
-                                 plain_ms=plain_ms, library_ms=None,
+                                 device_ms=device_ms, plain_ms=plain_ms,
+                                 library_ms=None,
                                  **sweep_bound(n_mats, 42, part))
-                msg += (f"; {name} {ms:.3f} ms ({host_ms:.3f} with the host's "
-                        f"enqueue), plain {plain_ms:.3f} ms")
+                msg += (f"; {name} {ms:.3f} ms ({device_ms:.3f} on the card "
+                        f"alone), plain {plain_ms:.3f} ms")
         print(msg, flush=True)
     print("phase 5 ok: K4, K2a, K2b agree with their plain twins", flush=True)
     return rec

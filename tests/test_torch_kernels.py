@@ -163,11 +163,12 @@ def test_render_kernel_many_components(cuda):
     assert float(((got - want).abs() / want.abs()).max()) < 1e-10
 
 
-def _k4_mixed(device, P, dtype=F64, seed=0):
+def _k4_mixed(device, P, copies=1, dtype=F64, seed=0):
     """K4's ragged inputs on 5 P x P tiles (tile 0 without an active pixel,
-    tile 1 all active, the others a disk of radius P / 3): 7 star rows
-    (C = 2) then 9 galaxy-sized rows (C = 28), each segment with one row
-    whose tile index is out of range (5)."""
+    tile 1 all active, the others a disk of radius P / 3): `copies` times
+    7 star rows (C = 2) then 9 galaxy-sized rows (C = 28); rows 3 and 10
+    have a tile index out of range (5). Three copies give a tile more rows
+    than render.K4_WARPS, so it takes several blocks."""
     rng = np.random.default_rng(seed + P)
     T = 5
     ii, jj = np.meshgrid(np.arange(P), np.arange(P), indexing="ij")
@@ -176,7 +177,7 @@ def _k4_mixed(device, P, dtype=F64, seed=0):
     iota = rng.uniform(800.0, 1200.0, (T, P, P))
     bg = rng.uniform(0.05, 0.15, (T, P, P))
     pixels = rng.poisson(iota * (bg + 0.3)) * mask
-    segments = ((7, 2), (9, 28))
+    segments = ((7, 2), (9, 28)) * copies
     R = sum(n for n, _ in segments)
     tile_index = rng.integers(0, T, R)
     tile_index[[3, 10]] = T
@@ -207,10 +208,15 @@ def _k4_mixed(device, P, dtype=F64, seed=0):
 def test_render_kernel_mixed_launch(cuda, P):
     """K4 on one launch of star and galaxy rows against its twin, per row
     (f64, 1e-10): an empty tile gives 0, a full tile and disks are scored,
-    out-of-range rows are NaN; two launches are bit-identical."""
-    tiles, idx, segments, comps, meta = _k4_mixed(cuda, P)
-    for warps in (3, render.K4_WARPS):
-        plan = render.row_plan(tiles, idx, segments, warps)
+    out-of-range rows are NaN; two launches are bit-identical. Once with a
+    block a tile and once with tiles of several blocks."""
+    for copies in (1, 3):
+        tiles, idx, segments, comps, meta = _k4_mixed(cuda, P, copies)
+        plan = render.row_plan(tiles, idx, segments)
+        T = tiles.ptr.numel() - 1
+        counts = torch.bincount(idx.clamp(max=T), minlength=T + 1)
+        assert (plan.work.shape[0] > int((counts > 0).sum())) == (
+            int(counts.max()) > render.K4_WARPS)
         n0 = render.mixture_poisson_ll.launches
         got = render.mixture_poisson_ll_ragged(tiles, plan, comps, meta)
         again = render.mixture_poisson_ll_ragged(tiles, plan, comps, meta)
@@ -266,6 +272,26 @@ def test_wrappers_reject_what_kernels_do_not_take(cuda):
     out = render.mixture_poisson_ll(t, t, t, t, comps, meta,
                                     torch.tensor([0, 3, 2, -1], device=cuda))
     assert torch.isnan(out).tolist() == [False, True, False, True]
+    # the ragged entry: a plan or tiles on the host, indices of another
+    # type, or a plan made for other tiles raise before any launch
+    tiles, idx, segments, comps, meta = _k4_mixed(cuda, 16)
+    plan = render.row_plan(tiles, idx, segments)
+    host = lambda nt: nt._replace(**{f: getattr(nt, f).cpu() for f in
+                                     nt._fields
+                                     if isinstance(getattr(nt, f),
+                                                   torch.Tensor)})
+    other = render.active_tiles(*(x[:4] for x in (
+        tiles.pixels, tiles.mask, tiles.iota, tiles.bg)))
+    n0 = render.mixture_poisson_ll.launches
+    for bad_tiles, bad_plan in (
+            (tiles, host(plan)), (host(tiles), plan),
+            (tiles, plan._replace(order=plan.order.long())),
+            (tiles._replace(x=tiles.x.float()), plan), (other, plan)):
+        with pytest.raises(ValueError):
+            render.mixture_poisson_ll_ragged(bad_tiles, bad_plan, comps, meta)
+    with pytest.raises(ValueError):     # comps of other rows than plan's
+        render.mixture_poisson_ll_ragged(tiles, plan, comps[:-1], meta)
+    assert render.mixture_poisson_ll.launches == n0
 
 
 def test_kernel_fit_matches_plain_fit(cuda):

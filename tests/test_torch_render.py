@@ -134,14 +134,16 @@ def test_ragged_plain_matches_per_model_and_jax():
     assert np.all(got.numpy()[idx == 2] == 0.0)   # the empty tile
 
 
-@pytest.mark.parametrize("max_warps", [1, 3, 8])
-def test_active_tiles_and_row_plan_rebuild_inputs(max_warps):
+@pytest.mark.parametrize("copies", [1, 3, 8])
+def test_active_tiles_and_row_plan_rebuild_inputs(copies):
     """The active-pixel lists rebuild the masks and the pixel values, and
-    the work items cover every row once, in blocks of at most `warps` rows
-    of one tile, heaviest first; rows past the tiles are grouped as -1."""
+    the work items cover every row once, in blocks of at most `warps` <=
+    K4_WARPS rows of one tile, heaviest first; rows past the tiles are
+    grouped as -1. `copies` of the row set give tiles more rows than
+    K4_WARPS, which then take several work items."""
     tiles, idx, segments, _, _ = _mixed(np.random.default_rng(6))
-    idx = np.concatenate([idx[:4], [4], idx[4:], [-1]])    # out of range
-    segments = ((6, 2), (5, 28))
+    idx = np.tile(np.concatenate([idx[:4], [4], idx[4:], [-1]]), copies)
+    segments = ((6, 2), (5, 28)) * copies
     at = render.active_tiles(*(torch.tensor(a) for a in tiles))
     T, P = tiles[1].shape[:2]
     mask = np.zeros((T, P, P))
@@ -158,8 +160,13 @@ def test_active_tiles_and_row_plan_rebuild_inputs(max_warps):
     for got, want in ((x, tiles[0]), (iota, tiles[2]), (bg, tiles[3])):
         np.testing.assert_array_equal(got[on], want[on])
 
-    plan = render.row_plan(at, torch.tensor(idx), segments, max_warps)
-    assert 1 <= plan.warps <= max_warps
+    plan = render.row_plan(at, torch.tensor(idx), segments)
+    assert 1 <= plan.warps <= render.K4_WARPS and plan.n_tiles == T
+    groups, counts = np.unique(np.where((idx >= 0) & (idx < T), idx, -1),
+                               return_counts=True)
+    # a tile's rows take the fewest items of at most K4_WARPS rows each
+    assert len(plan.work) == sum(-(-c // plan.warps) for c in counts)
+    assert (len(plan.work) > len(groups)) == (counts.max() > render.K4_WARPS)
     seen = np.zeros(len(idx), int)
     order = plan.order.numpy()
     C = np.repeat([C for _, C in segments], [n for n, _ in segments])
