@@ -3,13 +3,13 @@
 //
 // Replaces celeste_jl_tpu/ops/pallas_eigh.py::_sweep_a_kernel (K2a) and
 // ::_sweep_q_kernel (K2b), the split sweep the JAX package runs when
-// CELESTE_EIGH_FUSED=0. K2a rotates A through the D-1 rounds, exactly as
-// csrc/jacobi_sweep.cu does (same rotation formula, same circle-method
-// permutation, same expression order), and writes each round's (c, s) to
-// a (B, D-1, 2, K) log in device memory; K2b loads the log and replays
-// the column rotations and permutations on Q. Same expressions as
-// ops/eigh.jacobi_sweep_a_plain and jacobi_replay_q_plain, so in f64 the
-// split and fused sweeps agree to rounding.
+// CELESTE_EIGH_FUSED=0. K2a rotates A through the D-1 rounds with the
+// arithmetic of csrc/jacobi_sweep.cu (jacobi_round.cuh: the same rotation
+// and (c, s), the same circle-method permutation), and writes each round's
+// (c, s) to a (B, D-1, 2, K) log in device memory; K2b loads the log and
+// replays the column rotations and permutations on Q. Same formulas as
+// ops/eigh.jacobi_sweep_a_plain and jacobi_replay_q_plain; the split and
+// fused sweeps give the same bits.
 //
 // What bounds it on the card: as for the fused sweep, the chain of D-1
 // dependent rounds behind block barriers, not bytes or flops; the split
@@ -19,23 +19,16 @@
 // keeps Q, its ping-pong copy and the whole log there (2 D^2 + D (D-1)
 // values). Even D, 4 <= D <= 64.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "jacobi_round.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
-__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
-__device__ __forceinline__ float abs_t(float x) { return fabsf(x); }
-__device__ __forceinline__ double abs_t(double x) { return fabs(x); }
-
-// Row or column `i` of a rotated pair: c x_i - s x_{i+1} at an even
-// position, c x_i + s x_{i-1} at an odd one.
+// Entry `i` of a rotated pair: its own value and its partner's.
 template <typename T>
 __device__ __forceinline__ T rotated(T own, T other, T c, T s, int i) {
-  return (i & 1) ? c * own + s * other : c * own + (-s) * other;
+  return rot(own, other, c, (i & 1) ? s : -s);
 }
 
 // perm = interleave(ev, od): ev = [0, 1, 2, 4, ..., 2(K-2)],
@@ -71,16 +64,12 @@ __global__ void sweep_a_kernel(const T* __restrict__ A, T* __restrict__ Ao,
       const T app = a[(2 * k) * D + 2 * k];
       const T aqq = a[(2 * k + 1) * D + 2 * k + 1];
       const T apq = a[(2 * k) * D + 2 * k + 1];
-      const bool live = abs_t(apq) > T(1e-30);
-      const T tau = (aqq - app) / (T(2) * (live ? apq : T(1)));
-      const T sgn = tau >= T(0) ? T(1) : T(-1);
-      T t = sgn / (abs_t(tau) + sqrt_t(T(1) + tau * tau));
-      t = live ? t : T(0);
-      const T c = T(1) / sqrt_t(T(1) + t * t);
+      T c, s;
+      round_cs(app, aqq, apq, c, s);
       cs[k] = c;
-      cs[K + k] = t * c;
+      cs[K + k] = s;
       out_log[(size_t)r * 2 * K + k] = c;
-      out_log[(size_t)r * 2 * K + K + k] = t * c;
+      out_log[(size_t)r * 2 * K + K + k] = s;
     }
     __syncthreads();
 

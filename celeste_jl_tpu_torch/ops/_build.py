@@ -13,6 +13,8 @@ stream)` and returns the launch's cudaGetLastError() as an int. Pointer
 arguments are tensors of the kernel's float type, or int32 index tensors.
 `celeste_<kernel>_attrs_<f32|f64>` report a redesigned kernel's registers,
 local memory, shared memory and resident blocks (`kernel_attrs`).
+csrc/tests/*.cu hold checks for the card tests; `build(sources, name)`
+builds them into a library of their own.
 """
 
 import ctypes
@@ -46,9 +48,11 @@ ENTRY_POINTS = {
     # comps, comp_ptr, meta, tile_ptr, pos, x, iota, bg, order, work, out |
     # n_work, warps | stream
     "mixture_poisson_ll": [_P] * 11 + [_I] * 2 + [_P],
-    # the kernels' attributes (`kernel_attrs`): C or warps | int[4]
+    # the kernels' attributes (`kernel_attrs`): C, warps or D | int[4]
     "refresh_attrs": [_I, _P],
     "mixture_poisson_ll_attrs": [_I, _P],
+    "jacobi_sweep_attrs": [_I, _P],
+    "tr_subproblem_attrs": [_I, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -58,6 +62,10 @@ _loaded = {}
 def _sources():
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
                   if f.endswith((".cu", ".cuh")))
+
+
+def _headers():
+    return [s for s in _sources() if s.endswith(".cuh")]
 
 
 def _nvcc():
@@ -73,16 +81,17 @@ def _nvcc():
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def build():
-    """Compile csrc/*.cu unless the library for these sources exists, and
-    return its path. The compiler's report (registers, shared memory,
-    spills per kernel) is kept beside it as <library>.ptxas.txt."""
-    srcs = _sources()
+def build(sources=None, name="celeste_kernels"):
+    """Compile `sources` (default csrc/*.cu) into lib<name>_<hash>.so
+    unless the library for these sources and csrc/*.cuh exists, and return
+    its path. The compiler's report (registers, shared memory, spills per
+    kernel) is kept beside it as <library>.ptxas.txt."""
+    srcs = _sources() if sources is None else sorted(sources) + _headers()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
-    path = os.path.join(BUILD_DIR, f"libceleste_kernels_{h.hexdigest()[:16]}.so")
+    path = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -139,10 +148,32 @@ def check_cuda(dtype, device):
         raise ValueError(f"CUDA kernel takes float32 or float64, not {dtype}")
 
 
+_entries = {}
+# the current stream's handle as an int, without a Stream object (CUDA
+# builds of torch)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(device):
+    if _raw_stream is not None:
+        return _raw_stream(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _entry(name, dtype):
+    """The C entry point of kernel `name` for `dtype`, looked up once."""
+    fn = _entries.get((name, dtype))
+    if fn is None:
+        fn = getattr(library(), f"celeste_{name}_{_SUFFIX[dtype]}")
+        _entries[(name, dtype)] = fn
+    return fn
+
+
 def launch(name, dtype, *args):
     """Call kernel `name` for `dtype` on the current stream. Tensor
     arguments must be contiguous, of `dtype` (or int32 indices), on one
     CUDA device; raises if the launch reports an error."""
+    fn = _entry(name, dtype)
     device = None
     cargs = []
     for a in args:
@@ -154,24 +185,26 @@ def launch(name, dtype, *args):
                 device = a.device
             elif a.device != device:
                 raise ValueError(f"{name}: tensors on {device} and {a.device}")
-            cargs.append(ctypes.c_void_p(a.data_ptr()))
+            cargs.append(a.data_ptr())
         else:
-            cargs.append(ctypes.c_int(int(a)))
-    lib = library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = getattr(lib, f"celeste_{name}_{_SUFFIX[dtype]}")(
-            *cargs, ctypes.c_void_p(stream))
+            cargs.append(int(a))
+    if device.index == torch.cuda.current_device():
+        err = fn(*cargs, _stream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*cargs, _stream(device))
     if err:
         raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{lib.celeste_error_string(err).decode()}")
+                           f"{library().celeste_error_string(err).decode()}")
 
 
 def kernel_attrs(name, dtype, arg):
     """What the card reports for kernel `name` ("refresh" with arg = C,
-    "mixture_poisson_ll" with arg = warps a block) in `dtype`: registers a
-    thread, local memory a thread (stack and spills, bytes), shared memory
-    a block (bytes) and resident blocks per SM at that configuration."""
+    "mixture_poisson_ll" with arg = warps a block, "jacobi_sweep" and
+    "tr_subproblem" with arg = D) in
+    `dtype`: registers a thread, local memory a thread (stack and spills,
+    bytes), shared memory a block (bytes) and resident blocks per SM at
+    that configuration."""
     out = (ctypes.c_int * 4)()
     lib = library()
     fn = getattr(lib, f"celeste_{name}_attrs_{_SUFFIX[dtype]}")

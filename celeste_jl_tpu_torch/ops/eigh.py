@@ -112,18 +112,23 @@ def jacobi_sweep_split_plain(A, Q):
     return A, jacobi_replay_q_plain(Q, cs)
 
 
+# the sizes the sweep kernels are compiled for (jacobi_sweep.cu's
+# CELESTE_SWEEP_DIMS): every even D in [4, 64]
+SWEEP_DIMS = tuple(range(4, 65, 2))
+
+
 def _check_batch(name, A, Q):
     B, D = A.shape[0], A.shape[-1]
-    if (A.shape != (B, D, D) or Q.shape != A.shape or D % 2 or not
-            4 <= D <= 64):
+    if A.shape != (B, D, D) or Q.shape != A.shape or D not in SWEEP_DIMS:
         raise ValueError(f"{name}: A {tuple(A.shape)}, Q "
-                         f"{tuple(Q.shape)}; needs (B, D, D), even D <= 64")
+                         f"{tuple(Q.shape)}; needs (B, D, D), even D in "
+                         f"[4, 64]")
     return B, D
 
 
 def jacobi_sweep(A, Q):
     """One sweep, same contract as `jacobi_sweep_plain`:
-    csrc/jacobi_sweep.cu on CUDA tensors (f32 or f64, even D <= 64), the
+    csrc/jacobi_sweep.cu on CUDA tensors (f32 or f64, D in SWEEP_DIMS), the
     plain twin on CPU tensors. Anything else raises."""
     if A.device.type == "cpu":
         return jacobi_sweep_plain(A, Q)

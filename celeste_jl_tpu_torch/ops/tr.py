@@ -60,23 +60,27 @@ def tr_subproblem_plain(gq, w, delta, bisect_iters=48):
 
 def tr_subproblem(gq, w, delta, bisect_iters=48):
     """Same contract as `tr_subproblem_plain`: csrc/tr_subproblem.cu on
-    CUDA tensors (f32 or f64, D <= 64), the plain twin on CPU tensors.
+    CUDA tensors (f32 or f64, 1 <= D <= 64), the plain twin on CPU tensors.
     Anything else raises."""
     if gq.device.type == "cpu":
         return tr_subproblem_plain(gq, w, delta, bisect_iters)
-    _build.check_cuda(gq.dtype, gq.device)
+    dtype = gq.dtype
+    _build.check_cuda(dtype, gq.device)
     B, D = gq.shape
     if w.shape != (B, D) or delta.shape != (B,) or not 1 <= D <= 64:
         raise ValueError(f"tr_subproblem: gq {tuple(gq.shape)}, w "
                          f"{tuple(w.shape)}, delta {tuple(delta.shape)}")
-    gq = gq.contiguous()
-    w = w.to(gq.dtype).contiguous()
-    delta = delta.to(gq.dtype).contiguous()
+    if not gq.is_contiguous():
+        gq = gq.contiguous()
+    if w.dtype != dtype or not w.is_contiguous():
+        w = w.to(dtype).contiguous()
+    if delta.dtype != dtype or not delta.is_contiguous():
+        delta = delta.to(dtype).contiguous()
     p = torch.empty_like(gq)
     pred = torch.empty_like(delta)
     if B:
-        _build.launch("tr_subproblem", gq.dtype, gq, w, delta, p, pred,
-                      B, D, bisect_iters)
+        _build.launch("tr_subproblem", dtype, gq, w, delta, p, pred, B, D,
+                      bisect_iters)
         tr_subproblem.launches += 1
     return p, pred
 

@@ -12,14 +12,16 @@ Phases, one line each; the first failure exits non-zero:
   3. the slice: synthetic_patch_batch(1024, tile=32, seed=1) fitted by
      fit_sources_compacted with bench.py's configuration in f32; every ELBO
      finite and every kernel launched; fits/s, mean iterations, converged
-     fraction and star/galaxy accuracy against the synthetic truth;
+     fraction and star/galaxy accuracy against the synthetic truth; each
+     stage's batch and launches, and K2 and K3 checked and timed at the
+     stage-2 bucket (the record's "stage2");
   4. the kernels against the plain twins on the slice: 64 sources fitted
      twice with bench.py's configuration; in f64 the classifications agree
      and no lane's ELBO is worse than the plain run's by more than 1e-4
      relative; the same comparison in f32 is reported;
-  5. the compiled shape of the redesigned kernels K1 and K4 (registers,
-     local memory, shared memory, blocks per SM; nvcc's -Xptxas -v
-     lines); the MCMC slice's kernel K4 (the fused render + Poisson score)
+  5. the compiled shape of the redesigned kernels K1, K4, K2 and K3
+     (registers, local memory, shared memory, blocks per SM; nvcc's -Xptxas
+     -v lines); the MCMC slice's kernel K4 (the fused render + Poisson score)
      against its twin: on radius-8 patches (64 sources x 10 samples on
      32x32 tiles, plus 16x16 and 64x64) for each model through the
      single-model entry and for both models in one ragged launch, timed
@@ -345,15 +347,7 @@ def phase_kernels(device="cuda", k1_sets=((1024, 32), (64, 16), (16, 128)),
             ok = err < F64_TOL
             tol_txt = f"rel err {err:.3g} (tol {F64_TOL:g})"
         else:
-            # assert_allclose(rtol=atol=2e-5) of tests/test_pallas_tr.py,
-            # non-finite entries (the near-hard lane overflows in f32) equal
-            def excess(a, b):
-                fin = torch.isfinite(b)
-                same = torch.equal(fin, torch.isfinite(a))
-                d = ((a - b).abs() - K3_F32_TOL * (1 + b.abs()))[fin]
-                return float(d.max()) if same else float("inf")
-
-            ok = max(excess(p1, p2), excess(r1, r2)) <= 0
+            ok = k3_f32_ok(p1, r1, p2, r2)
             fin = torch.isfinite(p2)
             err = max(float((p1 - p2).abs()[fin].max()),
                       float((r1 - r2).abs()[torch.isfinite(r2)].max()))
@@ -369,13 +363,28 @@ def phase_kernels(device="cuda", k1_sets=((1024, 32), (64, 16), (16, 128)),
             # p and pred out
             rec["tr_subproblem"] = dict(
                 max_abs_err=err, ms=ms, device_ms=device_ms,
-                plain_ms=plain_ms, library_ms=None,
-                **bound(n_mats * 48 * 42 * 5, 4 * n_mats * (3 * 42 + 2)))
+                plain_ms=plain_ms, library_ms=None, **tr_bound(n_mats, 42))
             msg += (f"; kernel {ms:.3f} ms ({device_ms:.3f} on the card "
                     f"alone), plain {plain_ms:.3f} ms")
         print(msg, flush=True)
     print("phase 2 ok: K1, K2, K3 agree with their plain twins", flush=True)
     return rec
+
+
+def k3_f32_ok(p1, r1, p2, r2):
+    """K3's (p, pred) against its twin's in f32: assert_allclose(rtol =
+    atol = 2e-5) of tests/test_pallas_tr.py, with the non-finite entries
+    (the near-hard lane overflows in f32) in the same places."""
+    import torch
+
+    def excess(a, b):
+        fin = torch.isfinite(b)
+        if not torch.equal(fin, torch.isfinite(a)):
+            return float("inf")
+        d = ((a - b).abs() - K3_F32_TOL * (1 + b.abs()))[fin]
+        return float(d.max()) if d.numel() else 0.0
+
+    return max(excess(p1, p2), excess(r1, r2)) <= 0
 
 
 def sweep_bound(B, D, part):
@@ -400,12 +409,65 @@ def bench_config():
                         secular="bisect")
 
 
-def phase_slice(device="cuda", n_sources=1024, tile=32):
+def fit_kernels_at(B, device="cuda"):
+    """K2 and K3 at batch B (the stage-2 bucket, or 1): each against its
+    twin (K2 in f64 to F64_TOL, K3 in f32 to K3_F32_TOL) and timed in f32.
+    Returns {name: {B, ms, device_ms, bound_ms, bound_by}}."""
+    import torch
+
+    from celeste_jl_tpu_torch.ops import eigh, tr
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    time_fn = ((lambda fn, spin=False: timed_ms(fn, torch, spin=spin))
+               if device == "cuda" else (lambda fn, spin=False: float("nan")))
+    out = {}
+    H64 = wide_spectrum_batch(np.random.default_rng(0), B)
+    for dtype in (torch.float64, torch.float32):
+        H = torch.as_tensor(H64, dtype=dtype, device=device)
+        eye = torch.eye(42, dtype=dtype, device=device).expand_as(H)
+        if dtype == torch.float64:
+            (A1, Q1), (A2, Q2) = (eigh.jacobi_sweep(H, eye),
+                                  eigh.jacobi_sweep_plain(H, eye))
+            sync()
+            norm = torch.linalg.matrix_norm(H)[:, None, None]
+            err = max(float(((A1 - A2).abs() / norm).max()),
+                      float((Q1 - Q2).abs().max()))
+            check(err < F64_TOL, f"K2 at B={B} f64: rel err {err:.3g}")
+        else:
+            kernel = lambda: eigh.jacobi_sweep(H, eye)
+            out["jacobi_sweep"] = dict(B=B, ms=time_fn(kernel),
+                                       device_ms=time_fn(kernel, spin=True),
+                                       **sweep_bound(B, 42, "aq"))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    gq, w, delta = map(t, tr_cases(np.random.default_rng(7), B))
+    p1, r1 = tr.tr_subproblem(gq, w, delta, 48)
+    p2, r2 = tr.tr_subproblem_plain(gq, w, delta, 48)
+    sync()
+    check(k3_f32_ok(p1, r1, p2, r2),
+          f"K3 at B={B} f32 outside rtol = atol = {K3_F32_TOL:g}")
+    kernel = lambda: tr.tr_subproblem(gq, w, delta, 48)
+    out["tr_subproblem"] = dict(B=B, ms=time_fn(kernel),
+                                device_ms=time_fn(kernel, spin=True),
+                                **tr_bound(B, 42))
+    return out
+
+
+def tr_bound(B, D, iters=48):
+    """K3's bound: ~5 flops per coordinate per bisection; gq, w, delta in,
+    p and pred out."""
+    return bound(B * iters * D * 5, 4 * B * (3 * D + 2))
+
+
+def phase_slice(device="cuda", n_sources=1024, tile=32, rec=None):
+    """The fit at full width. Prints each stage's batch and launches (the
+    unconverged lanes finish in a power-of-two bucket); with `rec` (phase
+    2's records), K2 and K3 are checked and timed at that bucket too, and
+    at B = 1 (`floor_ms`: their chains of dependent steps alone)."""
     import torch
 
     from celeste_jl_tpu_torch.ops import eigh, refresh, tr
     from celeste_jl_tpu_torch.synthetic import synthetic_patch_batch
-    from celeste_jl_tpu_torch.vi.optimize import fit_sources_compacted
+    from celeste_jl_tpu_torch.vi import optimize
 
     catalog, vp0s, patches = synthetic_patch_batch(n_sources, tile=tile,
                                                    seed=1, device=device)
@@ -415,12 +477,28 @@ def phase_slice(device="cuda", n_sources=1024, tile=32):
                 "tr_subproblem": tr.tr_subproblem}
     for fn in counters.values():
         fn.launches = 0
+    # each stage of fit_sources_compacted is one fit_sources call: note its
+    # batch and the launches it made
+    stages, fit_sources = [], optimize.fit_sources
+
+    def staged(vp, *args, **kw):
+        n0 = {k: fn.launches for k, fn in counters.items()}
+        res = fit_sources(vp, *args, **kw)
+        stages.append((vp.shape[0], {k: fn.launches - n0[k]
+                                     for k, fn in counters.items()}))
+        return res
+
     if device == "cuda":
         torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = fit_sources_compacted(vp0, patches, config=bench_config())
-    elbo = res.elbo.cpu().numpy()
-    wall = time.perf_counter() - t0
+    optimize.fit_sources = staged
+    try:
+        t0 = time.perf_counter()
+        res = optimize.fit_sources_compacted(vp0, patches,
+                                             config=bench_config())
+        elbo = res.elbo.cpu().numpy()
+        wall = time.perf_counter() - t0
+    finally:
+        optimize.fit_sources = fit_sources
     launches = {k: fn.launches for k, fn in counters.items()}
 
     check(res.vp.shape == (n_sources, 44), f"vp shape {tuple(res.vp.shape)}")
@@ -436,7 +514,22 @@ def phase_slice(device="cuda", n_sources=1024, tile=32):
           f"{n_sources / wall:.2f} fits/s (f32, one run, kernels included); "
           f"mean iters {float(res.iters.double().mean()):.2f}; converged "
           f"{float(res.converged.double().mean()):.4f}; star/galaxy accuracy "
-          f"{acc:.4f}; launches {launches}", flush=True)
+          f"{acc:.4f}; launches {launches}; by stage "
+          + "; ".join(f"stage {i + 1} B={b}: {n}"
+                      for i, (b, n) in enumerate(stages)), flush=True)
+    if rec is not None and len(stages) > 1:
+        bucket = stages[1][0]
+        for name, r in fit_kernels_at(bucket, device).items():
+            rec[name]["stage2"] = r
+            print(f"phase 3: {name} at the stage-2 bucket B={bucket}: "
+                  f"{r['ms']:.4f} ms ({r['device_ms']:.4f} on the card "
+                  f"alone), bound {r['bound_ms']:.3g} ms", flush=True)
+        # one matrix, one lane alone: the kernel's chain of dependent steps
+        # (41 rounds for K2, 48 bisections for K3) with nothing to overlap
+        for name, r in fit_kernels_at(1, device).items():
+            rec[name]["floor_ms"] = r["device_ms"]
+            print(f"phase 3: {name} at B=1 (its dependency chain alone): "
+                  f"{r['device_ms']:.4f} ms on the card", flush=True)
     return launches
 
 
@@ -585,13 +678,21 @@ def kernel_report(dtype):
 
     lines = []
     for name, what, arg in (("refresh", "C", 30),
-                            ("mixture_poisson_ll", "warps", render.K4_WARPS)):
+                            ("mixture_poisson_ll", "warps", render.K4_WARPS),
+                            ("jacobi_sweep", "D", 42),
+                            ("tr_subproblem", "D", 42)):
         a = _build.kernel_attrs(name, dtype, arg)
         lines.append(f"{name} {str(dtype)[6:]} ({what} = {arg}): "
                      f"{a['registers']} registers, {a['local_bytes']} B "
                      f"local, {a['shared_bytes']} B shared, "
                      f"{a['blocks_per_sm']} blocks per SM")
     return lines
+
+
+# the compiled instances phase 5 prints nvcc's report for (mangled-name
+# fragments): K1, K4, K2 at D = 42 and K3's instance for D in [33, 64]
+PTXAS_KERNELS = ("refresh_kernel", "render_ll_kernel", "sweep_kernelIfLi42E",
+                 "sweep_kernelIdLi42E", "tr_kernelIfLi2E", "tr_kernelIdLi2E")
 
 
 def phase_new_kernels(scene, device="cuda", tiles=(32, 16, 64),
@@ -615,7 +716,7 @@ def phase_new_kernels(scene, device="cuda", tiles=(32, 16, 64),
         for dtype in (torch.float32, torch.float64):
             for line in kernel_report(dtype):
                 print(f"phase 5: {line}", flush=True)
-        for kernel in ("refresh_kernel", "render_ll_kernel"):
+        for kernel in PTXAS_KERNELS:
             for line in _build.ptxas_lines(kernel):
                 print(f"phase 5: ptxas {line}", flush=True)
     models = (("star", (0,)), ("galaxy", (1,)), ("both", (0, 1)))
@@ -952,7 +1053,7 @@ def main():
         rec = phase_kernels()
         _phase_clock(2, t0)
         t0 = time.perf_counter()
-        launches = phase_slice()
+        launches = phase_slice(rec=rec)
         _phase_clock(3, t0)
         t0 = time.perf_counter()
         phase_compare()

@@ -1,11 +1,15 @@
 """The port's parallel-Jacobi eigensolver (ops/eigh.py): the plain sweep,
 fused and split, against the JAX package's Pallas sweeps (interpret mode),
 jacobi_eigh at the bars of tests/test_pallas_eigh.py:46-54, the same rows
-at two batch sizes, and a fit through the split sweep. The CUDA sweeps are
+at two batch sizes, and a fit through the split sweep; the fused sweep
+kernel's schedule replayed in numpy and its size list. The CUDA sweeps are
 held to the plain ones in test_torch_kernels.py."""
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from celeste_jl_tpu.ops.pallas_eigh import D, _one_sweep
@@ -174,3 +178,125 @@ def test_fit_with_split_sweep_matches_fused(monkeypatch):
     assert torch.equal(fused.iters, split.iters)
     np.testing.assert_allclose(split.elbo.numpy(), fused.elbo.numpy(),
                                rtol=1e-12)
+
+
+def _kernel_sweep(A, Q):
+    """csrc/jacobi_sweep.cu's schedule in numpy, with the kernel's index
+    formulas: A ping-pongs between two buffers, each source 2x2 block is
+    rotated and written to its permuted place (pinv); the next round's
+    (c, s) come from entries recomputed out of the round's source blocks;
+    Q's columns sit in label order and each pair slot's two labels step
+    down by one a round (mod D-1)."""
+    B, D, _ = A.shape
+    K, m = D // 2, D - 1
+    perm = lambda j: ((j >> 1 if j >> 1 < 2 else j - 2) if j % 2 == 0
+                      else (j + 2 if j >> 1 < K - 1 else D - 2))
+    pinv = lambda i: (0 if i == 0 else 2 if i == 1 else i - 2 if i % 2
+                      else D - 1 if i == D - 2 else i + 2)
+    label0 = np.array([D - 1 - (j >> 1) if j % 2 else j >> 1
+                       for j in range(D)])
+    rot = lambda own, other, c, sgn_s: c * own + sgn_s * other
+
+    def round_cs(app, aqq, apq):
+        # the twin's (c, s) of 2x2 blocks [[app, apq], [apq, aqq]] (torch's
+        # CPU sqrt, as the twin takes it)
+        blocks = np.stack([np.stack([app, apq], -1),
+                           np.stack([apq, aqq], -1)], -2)
+        c, s = eigh._round_cs(torch.tensor(blocks.reshape(-1, 2, 2)))
+        return np.stack([c.numpy(), s.numpy()], -1).reshape(app.shape + (2,))
+
+    def entry(a, cs, x, y):
+        """Entry (x, y) of the next round's A, from its source block."""
+        ka, kb = x >> 1, y >> 1
+        ca, cb = cs[:, ka], cs[:, kb]
+        sa = np.where(x % 2 == 1, ca[..., 1], -ca[..., 1])
+        sb = np.where(y % 2 == 1, cb[..., 1], -cb[..., 1])
+        bi = np.arange(a.shape[0])[:, None]
+        t0 = rot(a[bi, x, 2 * kb], a[bi, x ^ 1, 2 * kb], ca[..., 0], sa)
+        t1 = rot(a[bi, x, 2 * kb + 1], a[bi, x ^ 1, 2 * kb + 1], ca[..., 0],
+                 sa)
+        return np.where(y % 2 == 1, rot(t1, t0, cb[..., 0], sb),
+                        rot(t0, t1, cb[..., 0], sb))
+
+    ks = np.arange(K)
+    a = [A.copy(), np.empty_like(A)]
+    q = np.empty_like(Q)
+    q[:, :, label0] = Q
+    cs = round_cs(A[:, 2 * ks, 2 * ks], A[:, 2 * ks + 1, 2 * ks + 1],
+                  A[:, 2 * ks, 2 * ks + 1])
+    pa = np.array([perm(2 * k) for k in ks])
+    qb = np.array([perm(2 * k + 1) for k in ks])
+    pl, ql = ks.copy(), D - 1 - ks
+    k1, k2 = np.meshgrid(ks, ks, indexing="ij")
+    r0 = np.vectorize(pinv)(2 * k1)
+    r1 = np.vectorize(pinv)(2 * k1 + 1)
+    c0 = np.vectorize(pinv)(2 * k2)
+    c1 = np.vectorize(pinv)(2 * k2 + 1)
+    for r in range(D - 1):
+        src, dst = a[r % 2], a[(r + 1) % 2]
+        if r < D - 2:
+            nxt = round_cs(entry(src, cs, pa, pa), entry(src, cs, qb, qb),
+                           entry(src, cs, pa, qb))
+        ca, cb = cs[:, k1], cs[:, k2]
+        x00, x01 = src[:, 2 * k1, 2 * k2], src[:, 2 * k1, 2 * k2 + 1]
+        x10, x11 = src[:, 2 * k1 + 1, 2 * k2], src[:, 2 * k1 + 1, 2 * k2 + 1]
+        t00 = rot(x00, x10, ca[..., 0], -ca[..., 1])
+        t01 = rot(x01, x11, ca[..., 0], -ca[..., 1])
+        t10 = rot(x10, x00, ca[..., 0], ca[..., 1])
+        t11 = rot(x11, x01, ca[..., 0], ca[..., 1])
+        dst[:, r0, c0] = rot(t00, t01, cb[..., 0], -cb[..., 1])
+        dst[:, r0, c1] = rot(t01, t00, cb[..., 0], cb[..., 1])
+        dst[:, r1, c0] = rot(t10, t11, cb[..., 0], -cb[..., 1])
+        dst[:, r1, c1] = rot(t11, t10, cb[..., 0], cb[..., 1])
+        x, y = q[:, :, pl], q[:, :, ql]
+        c, s = cs[:, None, :, 0], cs[:, None, :, 1]
+        q[:, :, pl], q[:, :, ql] = rot(x, y, c, -s), rot(y, x, c, s)
+        pl = np.where(ks == 0, 0, np.where(pl == 1, m, pl - 1))
+        ql = np.where(ql == 1, m, ql - 1)
+        if r < D - 2:
+            # the recomputed entries are the ones the round stored
+            want = round_cs(dst[:, 2 * ks, 2 * ks],
+                            dst[:, 2 * ks + 1, 2 * ks + 1],
+                            dst[:, 2 * ks, 2 * ks + 1])
+            assert np.array_equal(nxt, want)
+            cs = nxt
+    return a[(D - 1) % 2], q[:, :, label0]
+
+
+def test_kernel_schedule_is_the_plain_sweep():
+    """The fused sweep kernel's index formulas (its permutation and inverse,
+    Q's label columns and their counters, the next round's (c, s) from
+    recomputed entries), replayed in numpy in f64, give the plain twin's
+    bits at D = 4, 6, 42 and 64: the permutation has order D-1, so Q's
+    labels are back in place after a sweep."""
+    rng = np.random.default_rng(5)
+    for n in (4, 6, 42, 64):
+        x = rng.standard_normal((3, n, n))
+        A = x + x.transpose(0, 2, 1)
+        Q = np.linalg.qr(rng.standard_normal((3, n, n)))[0]
+        Ak, Qk = _kernel_sweep(A, Q)
+        Ap, Qp = eigh.jacobi_sweep_plain(torch.tensor(A), torch.tensor(Q))
+        assert np.array_equal(Ak, Ap.numpy()), n
+        assert np.array_equal(Qk, Qp.numpy()), n
+
+
+def test_sweep_sizes_match_the_kernel_dispatch():
+    """SWEEP_DIMS is the list of sizes jacobi_sweep.cu instantiates, and the
+    wrappers' check takes exactly those."""
+    import re
+
+    cu = os.path.join(os.path.dirname(eigh.__file__), "..", "csrc",
+                      "jacobi_sweep.cu")
+    with open(cu) as f:
+        src = f.read()
+    macro = src[src.index("#define CELESTE_SWEEP_DIMS"):]
+    macro = macro[:macro.index("\n\n")]
+    assert tuple(int(d) for d in re.findall(r"X\((\d+)\)", macro)) == (
+        eigh.SWEEP_DIMS)
+    for n in range(0, 70):
+        A = torch.zeros(2, n, n)
+        if n in eigh.SWEEP_DIMS:
+            assert eigh._check_batch("x", A, A) == (2, n)
+        else:
+            with pytest.raises(ValueError):
+                eigh._check_batch("x", A, A)

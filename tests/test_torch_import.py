@@ -1,5 +1,6 @@
-"""The PyTorch port imports neither JAX nor the JAX package, and its smoke
-script refuses to run without a CUDA device or outside a checkout."""
+"""The PyTorch port imports neither JAX nor the JAX package, its smoke
+script refuses to run without a CUDA device or outside a checkout, and the
+argument types it gives ctypes match its kernels' C entry points."""
 
 import os
 import shutil
@@ -65,7 +66,11 @@ def test_chip_smoke_phases_run_on_cpu_twins():
     import chip_smoke as cs
 
     rec = cs.phase_kernels(device="cpu", k1_sets=((2, 16), (1, 40)), n_mats=4)
-    launches = cs.phase_slice(device="cpu", n_sources=3, tile=16)
+    launches = cs.phase_slice(device="cpu", n_sources=3, tile=16, rec=rec)
+    # the fit's stage 2 runs (in place, B = 3): K2 and K3 checked there too
+    assert rec["jacobi_sweep"]["stage2"]["B"] == 3
+    assert rec["tr_subproblem"]["stage2"]["bound_ms"] > 0
+    assert {"floor_ms"} <= set(rec["jacobi_sweep"]) & set(rec["tr_subproblem"])
     cs.phase_compare(device="cpu", n_sources=2, tile=16)
     scene = cs.mcmc_scene("cpu", n_sources=2)
     rec.update(cs.phase_new_kernels(scene, device="cpu", tiles=(16,),
@@ -80,3 +85,25 @@ def test_chip_smoke_phases_run_on_cpu_twins():
     assert all(r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
                and r["library_ms"] is None for r in rec.values())
     assert launches == {k: 0 for k in cs.SOURCES}   # CPU: no kernel runs
+
+
+def test_entry_points_match_the_c_signatures():
+    """Each C entry point of csrc/*.cu takes, in order, the pointers and
+    ints that `_build.ENTRY_POINTS` declares to ctypes (ctypes would pass a
+    wrong list without an error)."""
+    import ctypes
+    import glob
+    import re
+
+    from celeste_jl_tpu_torch.ops import _build
+
+    declared = {}
+    for path in glob.glob(os.path.join(_build.CSRC, "*.cu")):
+        with open(path) as f:
+            src = f.read().replace("\\\n", " ")
+        for name, params in re.findall(
+                r'extern "C" int celeste_(\w+?)_(?:f32|##SUFFIX)\s*\(([^)]*)\)',
+                src):
+            declared[name] = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                              for p in params.split(",")]
+    assert declared == _build.ENTRY_POINTS

@@ -307,3 +307,196 @@ def test_kernel_fit_matches_plain_fit(cuda):
                                   rp.vp[:, 26].cpu().numpy() > 0.5)
     e = rp.elbo.cpu().numpy()
     assert np.all((rk.elbo.cpu().numpy() - e) / np.abs(e) > -1e-4)
+
+
+def _spectrum(rng, B, D):
+    """B jittered copies of a symmetric D x D matrix with eigenvalues
+    spanning 1e-5 to 1e3 and a negative tail (as chip_smoke.py's K2 batch),
+    and their reference eigenvalues."""
+    n_neg = max(1, D // 7)
+    w = np.concatenate([-np.logspace(-4, 1, n_neg),
+                        np.logspace(-5, 3, D - n_neg)])
+    V, _ = np.linalg.qr(rng.standard_normal((D, D)))
+    H = (V * w) @ V.T + 1e-3 * rng.standard_normal((B, D, D))
+    H = 0.5 * (H + H.transpose(0, 2, 1))
+    return H, np.linalg.eigvalsh(H)
+
+
+@pytest.mark.parametrize("D", [4, 6, 42, 64])
+def test_sweep_kernel_sizes_and_batches(cuda, D):
+    """K2 against its twin at D = 4, 6, 42, 64 and B = 1, 129, 1024, 2000
+    (a partial wave and a second one): f64 within 1e-9 of ||H|| (Q within
+    1e-9); f32 through jacobi_eigh's quality bars (chip_smoke.EIGH_BARS),
+    since one f32 sweep amplifies rounding; two launches bit-identical."""
+    rng = np.random.default_rng(D)
+    for B in (1, 129, 1024, 2000):
+        H64, w_ref = _spectrum(rng, B, D)
+        for dtype in (F64, torch.float32):
+            H = torch.tensor(H64, dtype=dtype, device=cuda)
+            eye = torch.eye(D, dtype=dtype, device=cuda).expand_as(H)
+            n0 = eigh.jacobi_sweep.launches
+            Ak, Qk = eigh.jacobi_sweep(H, eye)
+            Ak2, Qk2 = eigh.jacobi_sweep(H, eye)
+            assert eigh.jacobi_sweep.launches == n0 + 2
+            assert torch.equal(Ak, Ak2) and torch.equal(Qk, Qk2)
+            if dtype == F64:
+                Ap, Qp = eigh.jacobi_sweep_plain(H, eye)
+                norm = torch.linalg.matrix_norm(H)[:, None, None]
+                assert float(((Ak - Ap).abs() / norm).max()) < 1e-9, (D, B)
+                assert float((Qk - Qp).abs().max()) < 1e-9, (D, B)
+                continue
+            w, Q, _ = eigh.jacobi_eigh(H, tol=1e-6, max_sweeps=10)
+            w = w.double().cpu().numpy()
+            Q = Q.double().cpu().numpy()
+            dw = np.max(np.abs(np.sort(w, -1) - w_ref))
+            orth = np.max(np.abs(np.einsum("bji,bjk->bik", Q, Q)
+                                 - np.eye(D)))
+            resid = (np.max(np.abs(np.einsum("bij,bjk->bik", H64, Q)
+                                   - w[:, None, :] * Q))
+                     / np.linalg.norm(H64[0]))
+            assert dw < 5e-3 and orth < 1e-4 and resid < 1e-4, (D, B)
+
+
+def _tr_lanes(rng, B, D):
+    """K3's cases: positive-definite (interior) and indefinite (boundary)
+    lanes, a hard-case lane (gq orthogonal to the bottom eigenvector), a
+    lane whose minimum of w is tied (the first index is the bottom), the
+    same tie in the hard case, and a lane with a NaN in gq."""
+    w = rng.standard_normal((B, D)) * 3.0
+    w[: B // 3] = np.abs(w[: B // 3]) + 0.5
+    gq = rng.standard_normal((B, D))
+    delta = 10.0 ** rng.uniform(-3, 1, B)
+    w[-1] = np.linspace(3.0, 0.5, D)
+    w[-1, -1] = -2.0
+    gq[-1, -1] = 0.0
+    delta[-1] = 5.0
+    if D > 3:
+        for lane, g_bottom in ((-2, 1.0), (-3, 0.0)):
+            w[lane] = np.abs(w[lane]) + 1.0
+            w[lane, [1, D - 2]] = -2.5
+            gq[lane, [1, D - 2]] = g_bottom
+            delta[lane] = 4.0
+    gq[-4, D // 2] = np.nan
+    return gq, w, delta
+
+
+@pytest.mark.parametrize("D", [1, 7, 42, 64])
+def test_tr_kernel_sizes_and_cases(cuda, D):
+    """K3 against its twin in f64 (1e-9), on 1001 lanes (not a multiple of
+    a block's lanes): interior, boundary, hard-case and tied-minimum lanes
+    (the first index wins), and a NaN in gq (a NaN step and pred, as the
+    twin gives); two launches are bit-identical."""
+    gq, w, delta = (torch.tensor(a, device=cuda)
+                    for a in _tr_lanes(np.random.default_rng(D), 1001, D))
+    n0 = tr.tr_subproblem.launches
+    p_k, pred_k = (x.clone() for x in tr.tr_subproblem(gq, w, delta, 48))
+    p_k2, pred_k2 = tr.tr_subproblem(gq, w, delta, 48)
+    assert tr.tr_subproblem.launches == n0 + 2
+    assert torch.equal(p_k.nan_to_num(7.0), p_k2.nan_to_num(7.0))
+    assert torch.equal(pred_k.nan_to_num(7.0), pred_k2.nan_to_num(7.0))
+    p_p, pred_p = tr.tr_subproblem_plain(gq, w, delta, 48)
+    torch.testing.assert_close(p_k, p_p, rtol=1e-9, atol=1e-9,
+                               equal_nan=True)
+    torch.testing.assert_close(pred_k, pred_p, rtol=1e-9, atol=1e-9,
+                               equal_nan=True)
+    assert bool(torch.isnan(pred_k[-4])) and bool(torch.isnan(p_k[-4]).all())
+    if D > 3:   # the tied hard-case lane steps along index 1, not D - 2
+        assert abs(float(p_k[-3, 1])) > 0.1 and float(p_k[-3, D - 2]) == 0.0
+
+
+def test_fit_kernels_reject_unsupported_sizes(cuda):
+    """K2 takes even D in [4, 64], K3 D in [1, 64]: any other size raises
+    ValueError before a launch."""
+    n2, n3 = eigh.jacobi_sweep.launches, tr.tr_subproblem.launches
+    for D in (2, 41, 66):
+        A = torch.zeros(3, D, D, dtype=F64, device=cuda)
+        with pytest.raises(ValueError):
+            eigh.jacobi_sweep(A, A)
+    for D in (0, 65):
+        x = torch.zeros(3, D, dtype=F64, device=cuda)
+        with pytest.raises(ValueError):
+            tr.tr_subproblem(x, x, x[:, 0] if D else torch.ones(
+                3, dtype=F64, device=cuda), 48)
+    assert (eigh.jacobi_sweep.launches, tr.tr_subproblem.launches) == (n2, n3)
+
+
+def _ieee_fast_checks():
+    """csrc/tests/ieee_fast_check.cu, built apart from the kernel library:
+    call(name, *args) runs celeste_ieee_fast_<name> on the current stream
+    and asserts the launch succeeded."""
+    import ctypes
+    import os
+
+    from celeste_jl_tpu_torch.ops import _build
+
+    lib = ctypes.CDLL(_build.build(
+        [os.path.join(_build.CSRC, "tests", "ieee_fast_check.cu")],
+        "ieee_fast_check"))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    argtypes = {"check": [P] * 4 + [I] * 2 + [P], "rcp_scaling": [P, P],
+                "exhaustive": [I, I, P, P]}
+
+    def call(name, *args):
+        fn = getattr(lib, f"celeste_ieee_fast_{name}")
+        fn.argtypes, fn.restype = argtypes[name], ctypes.c_int
+        args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        assert fn(*args, torch.cuda.current_stream().cuda_stream) == 0, name
+
+    return call
+
+
+def test_fast_division_is_ieee(cuda):
+    """csrc/ieee_fast.cuh in f32 (K3's division). Its fast division, where
+    |b| and a nonzero |a| lie in [2^-60, 2^60]: the bits of IEEE division
+    (`/`) on 2^22 pairs of random sign, mantissa and exponent over that
+    range, and a zero for a = 0. Its checked division: the bits of `/` on
+    2^22 pairs over every exponent, with zeros of either sign, infinities
+    and NaN."""
+    call = _ieee_fast_checks()
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    n = 1 << 22
+    rnd = lambda lo, hi: (torch.rand(n, device=cuda, generator=gen,
+                                     dtype=F64) * (hi - lo) + lo)
+    sign = lambda: torch.where(torch.rand(n, device=cuda, generator=gen) < 0.5,
+                               -1.0, 1.0).to(F64)
+    fast, ieee = (torch.empty(n, device=cuda) for _ in range(2))
+
+    a = (sign() * torch.exp2(rnd(-60.0, 60.0))).float()
+    b = (sign() * torch.exp2(rnd(-60.0, 60.0))).float()
+    a[: n // 64] = 0.0
+    a[n // 64: n // 32] = -0.0
+    # mantissas next to 1, where the rounding is closest to a tie
+    b[-n // 64:] = 1.0 + torch.arange(n // 64, device=cuda) * 2.0 ** -23
+    call("check", a, b, fast, ieee, n, 0)
+    nz = a != 0
+    assert torch.equal(fast[nz].view(torch.int32), ieee[nz].view(torch.int32))
+    assert bool((fast[~nz] == 0).all())
+
+    a = (sign() * torch.exp2(rnd(-160.0, 140.0))).float()
+    b = (sign() * torch.exp2(rnd(-160.0, 140.0))).float()
+    a[:6] = torch.tensor([0.0, -0.0, float("inf"), float("nan"), 1.0, -0.0])
+    b[:6] = torch.tensor([3.0, 3.0, 2.0, 1.0, 0.0, -0.0])
+    call("check", a, b, fast, ieee, n, 1)
+    nan = torch.isnan(ieee)
+    assert torch.equal(torch.isnan(fast), nan)
+    assert torch.equal(fast[~nan].view(torch.int32),
+                       ieee[~nan].view(torch.int32))
+
+
+def test_fast_division_exhaustive(cuda):
+    """The proof by exhaustion csrc/ieee_fast.cuh's header relies on: the
+    reciprocal estimate of +-m 2^k is +-rcp(m) 2^-k for every significand m
+    and every k in [-60, 60], and the fast division gives the bits of `/`
+    for all 2^46 pairs a, b in [1, 2) (~1 min on an H100)."""
+    call = _ieee_fast_checks()
+    out = torch.zeros(3, dtype=torch.int64, device=cuda)
+    call("rcp_scaling", out)
+    torch.cuda.synchronize()
+    assert int(out[0]) == 0, f"b bits {int(out[2]):#x}"
+    chunk = 1 << 16
+    for b_first in range(0, 1 << 23, chunk):
+        call("exhaustive", b_first, chunk, out)
+    torch.cuda.synchronize()
+    assert int(out[0]) == 0, (f"{int(out[0])} pairs differ, e.g. a bits "
+                              f"{int(out[1]):#x}, b bits {int(out[2]):#x}")

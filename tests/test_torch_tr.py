@@ -1,7 +1,8 @@
 """The port's trust-region subproblem (ops/tr.py) against the JAX
 package's `_solve_tr_eig` (secular="bisect") on the cases of
 tests/test_pallas_tr.py: 2e-5 in f32 (test_pallas_tr.py:49) and 1e-12 in
-f64. The CUDA kernel is held to the plain twin in test_torch_kernels.py."""
+f64. The CUDA kernel is held to the plain twin in
+test_torch_kernels.py."""
 
 import jax
 import jax.numpy as jnp
