@@ -53,6 +53,8 @@ ENTRY_POINTS = {
     "mixture_poisson_ll_attrs": [_I, _P],
     "jacobi_sweep_attrs": [_I, _P],
     "tr_subproblem_attrs": [_I, _P],
+    "jacobi_sweep_a_attrs": [_I, _P],
+    "jacobi_replay_q_attrs": [_I, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -200,8 +202,8 @@ def launch(name, dtype, *args):
 
 def kernel_attrs(name, dtype, arg):
     """What the card reports for kernel `name` ("refresh" with arg = C,
-    "mixture_poisson_ll" with arg = warps a block, "jacobi_sweep" and
-    "tr_subproblem" with arg = D) in
+    "mixture_poisson_ll" with arg = warps a block, "jacobi_sweep",
+    "jacobi_sweep_a", "jacobi_replay_q" and "tr_subproblem" with arg = D) in
     `dtype`: registers a thread, local memory a thread (stack and spills,
     bytes), shared memory a block (bytes) and resident blocks per SM at
     that configuration."""

@@ -14,7 +14,8 @@ CELESTE_EIGH_FUSED=0 route, NewtonConfig.eigh_fused=False):
 log of each round's (c, s), and `jacobi_replay_q` replays the log on Q
 (csrc/jacobi_sweep_split.cu; plain twins `jacobi_sweep_a_plain`,
 `jacobi_replay_q_plain`). Same rotation formula and permutation as the
-fused sweep, so the two agree to rounding.
+fused sweep: the split kernels give the fused kernel's bits, the split
+twins the fused twin's.
 
 `jacobi_eigh` drives the sweeps like JAX `pallas_jacobi_eigh`: a warm
 start M = Q0' H Q0, then per sweep the kernel, one Newton-Schulz step on Q
@@ -112,7 +113,7 @@ def jacobi_sweep_split_plain(A, Q):
     return A, jacobi_replay_q_plain(Q, cs)
 
 
-# the sizes the sweep kernels are compiled for (jacobi_sweep.cu's
+# the sizes the sweep kernels are compiled for (jacobi_sweep.cuh's
 # CELESTE_SWEEP_DIMS): every even D in [4, 64]
 SWEEP_DIMS = tuple(range(4, 65, 2))
 
@@ -178,8 +179,9 @@ def jacobi_replay_q(Q, cs):
     if cs.shape != (B, D - 1, 2, D // 2):
         raise ValueError(f"jacobi_replay_q: log {tuple(cs.shape)}, needs "
                          f"{(B, D - 1, 2, D // 2)}")
-    Q = Q.contiguous()
-    cs = cs.to(Q.dtype).contiguous()
+    # K2b loads Q and the log in 16-byte vectors from where they start
+    Q, cs = (t if t.data_ptr() % 16 == 0 else t.clone()
+             for t in (Q.contiguous(), cs.to(Q.dtype).contiguous()))
     Qo = torch.empty_like(Q)
     if B:
         _build.launch("jacobi_replay_q", Q.dtype, Q, cs, Qo, B, D)

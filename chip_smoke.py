@@ -19,11 +19,11 @@ Phases, one line each; the first failure exits non-zero:
      twice with bench.py's configuration; in f64 the classifications agree
      and no lane's ELBO is worse than the plain run's by more than 1e-4
      relative; the same comparison in f32 is reported;
-  5. the compiled shape of the redesigned kernels K1, K4, K2 and K3
-     (registers, local memory, shared memory, blocks per SM; nvcc's -Xptxas
-     -v lines); the MCMC slice's kernel K4 (the fused render + Poisson score)
-     against its twin: on radius-8 patches (64 sources x 10 samples on
-     32x32 tiles, plus 16x16 and 64x64) for each model through the
+  5. the compiled shape of the redesigned kernels K1, K4, K2, K3, K2a and
+     K2b (registers, local memory, shared memory, blocks per SM; nvcc's
+     -Xptxas -v lines); the MCMC slice's kernel K4 (the fused render +
+     Poisson score) against its twin: on radius-8 patches (64 sources x 10
+     samples on 32x32 tiles, plus 16x16 and 64x64) for each model through the
      single-model entry and for both models in one ragged launch, timed
      for the galaxy rows on 32x32 (the earlier shape of the kernel's
      record); and on the AIS's own patches (patch_radii, the neighbours'
@@ -31,7 +31,9 @@ Phases, one line each; the first failure exits non-zero:
      launch as the evaluator scores them once (m = 1) and in the
      step-out's two copies (m = 2), timed with the bound and the exp floor
      (the m = 1 launch is the kernel's record); and the split Jacobi sweep
-     K2a + K2b against its twin and against K2, with times;
+     K2a + K2b against its twin (f64) and against K2, bit for bit (f32 and
+     f64), timed on 1024 matrices (the record), on phase 8's 256
+     (`split_fit`) and on one (`floor_ms`);
   6. the MCMC slice at full width: run_ais_batched on bench_mcmc.py's
      64-source scene with the production AIS program (50 temperatures x
      10 samples, 25-step chains, 1000 bootstrap draws, both models) in
@@ -680,7 +682,9 @@ def kernel_report(dtype):
     for name, what, arg in (("refresh", "C", 30),
                             ("mixture_poisson_ll", "warps", render.K4_WARPS),
                             ("jacobi_sweep", "D", 42),
-                            ("tr_subproblem", "D", 42)):
+                            ("tr_subproblem", "D", 42),
+                            ("jacobi_sweep_a", "D", 42),
+                            ("jacobi_replay_q", "D", 42)):
         a = _build.kernel_attrs(name, dtype, arg)
         lines.append(f"{name} {str(dtype)[6:]} ({what} = {arg}): "
                      f"{a['registers']} registers, {a['local_bytes']} B "
@@ -690,19 +694,52 @@ def kernel_report(dtype):
 
 
 # the compiled instances phase 5 prints nvcc's report for (mangled-name
-# fragments): K1, K4, K2 at D = 42 and K3's instance for D in [33, 64]
-PTXAS_KERNELS = ("refresh_kernel", "render_ll_kernel", "sweep_kernelIfLi42E",
-                 "sweep_kernelIdLi42E", "tr_kernelIfLi2E", "tr_kernelIdLi2E")
+# fragments): K1, K4, K2 (sweep_kernel with Q, without the log), K2a
+# (without Q, with the log) and K2b at D = 42, and K3's instance for D in
+# [33, 64]
+PTXAS_KERNELS = ("refresh_kernel", "render_ll_kernel",
+                 "sweep_kernelIfLi42ELb1ELb0E", "sweep_kernelIdLi42ELb1ELb0E",
+                 "sweep_kernelIfLi42ELb0ELb1E", "sweep_kernelIdLi42ELb0ELb1E",
+                 "replay_q_kernelIfLi42E", "replay_q_kernelIdLi42E",
+                 "tr_kernelIfLi2E", "tr_kernelIdLi2E")
+
+
+def split_kernels_at(B, device="cuda"):
+    """K2a and K2b at batch B in f32: K2a + K2b bit-identical to K2, and
+    each timed. Returns {name: {B, ms, device_ms, bound_ms, bound_by}}."""
+    import torch
+
+    from celeste_jl_tpu_torch.ops import eigh
+
+    time_fn = ((lambda fn, spin=False: timed_ms(fn, torch, spin=spin))
+               if device == "cuda" else (lambda fn, spin=False: float("nan")))
+    H = torch.as_tensor(wide_spectrum_batch(np.random.default_rng(0), B),
+                        dtype=torch.float32, device=device)
+    eye = torch.eye(42, dtype=H.dtype, device=device).expand_as(H)
+    A1, cs = eigh.jacobi_sweep_a(H)
+    Q1 = eigh.jacobi_replay_q(eye, cs)
+    A2, Q2 = eigh.jacobi_sweep(H, eye)
+    check(torch.equal(A1, A2) and torch.equal(Q1, Q2),
+          f"K2a+K2b at B={B} f32: not K2's bits")
+    out = {}
+    for name, fn, part in (("jacobi_sweep_a", lambda: eigh.jacobi_sweep_a(H),
+                            "a"),
+                           ("jacobi_replay_q",
+                            lambda: eigh.jacobi_replay_q(eye, cs), "q")):
+        out[name] = dict(B=B, ms=time_fn(fn), device_ms=time_fn(fn, spin=True),
+                         **sweep_bound(B, 42, part))
+    return out
 
 
 def phase_new_kernels(scene, device="cuda", tiles=(32, 16, 64),
-                      n_samples=10, n_mats=1024):
+                      n_samples=10, n_mats=1024, fit_batch=256):
     """K4 against its twin: on radius-8 patches at each tile size of
     `tiles`, one model at a time (through the single-model entry) and
     both in one launch; on the AIS's own patches, both models in one
     launch as the evaluator makes it (m = 1, the kernel's record) and
     for the step-out (m = 2). Then the split sweep K2a+K2b against its
-    twin and against K2. Returns {name: record}."""
+    twin and, bit for bit, against K2 on n_mats matrices, and at
+    fit_batch (phase 8's) and 1. Returns {name: record}."""
     import torch
 
     from celeste_jl_tpu_torch.mcmc import log_prob
@@ -797,9 +834,11 @@ def phase_new_kernels(scene, device="cuda", tiles=(32, 16, 64),
         A3, Q3 = eigh.jacobi_sweep(H, eye)
         sync()
         norm = torch.linalg.matrix_norm(H.double())[:, None, None]
-        err = lambda A, Q: max(float(((A1 - A).double().abs() / norm).max()),
-                               float((Q1 - Q).double().abs().max()))
-        e_plain, e_fused = err(A2, Q2), err(A3, Q3)
+        e_plain = max(float(((A1 - A2).double().abs() / norm).max()),
+                      float((Q1 - Q2).double().abs().max()))
+        # K2a and K2b do K2's arithmetic in K2's order (csrc/jacobi_sweep.cuh,
+        # jacobi_round.cuh): its bits, in either type
+        same = torch.equal(A1, A3) and torch.equal(Q1, Q3)
         w, Q, sweeps = eigh.jacobi_eigh(H, tol=1e-6, max_sweeps=10,
                                         sweep=eigh.jacobi_sweep_split)
         w = w.double().cpu().numpy()
@@ -809,14 +848,14 @@ def phase_new_kernels(scene, device="cuda", tiles=(32, 16, 64),
         resid = (np.max(np.abs(np.einsum("bij,bjk->bik", H64, Qn)
                                - w[:, None, :] * Qn))
                  / np.linalg.norm(H64[0]))
-        # f32 sweeps amplify rounding (phase 2): held through the
-        # eigensolver's bars only
+        # f32 sweeps amplify rounding (phase 2): against the twin, held
+        # through the eigensolver's bars only
         tol = SPLIT_F64_TOL if dtype == torch.float64 else float("inf")
         msg = (f"K2a+K2b split sweep {str(dtype)[6:]} B={n_mats} D=42: "
-               f"vs plain twin {e_plain:.3g}, vs K2 {e_fused:.3g} (tol "
-               f"{tol:g}); jacobi_eigh |dw| {dw:.3g} orth {orth:.3g} resid "
-               f"{resid:.3g} ({sweeps} sweeps)")
-        check(e_plain < tol and e_fused < tol and dw < EIGH_BARS["dw"]
+               f"vs plain twin {e_plain:.3g} (tol {tol:g}); bit-identical "
+               f"to K2 {same}; jacobi_eigh |dw| {dw:.3g} orth {orth:.3g} "
+               f"resid {resid:.3g} ({sweeps} sweeps)")
+        check(same and e_plain < tol and dw < EIGH_BARS["dw"]
               and orth < EIGH_BARS["orth"] and resid < EIGH_BARS["resid"],
               msg)
         if dtype == torch.float32:
@@ -835,9 +874,21 @@ def phase_new_kernels(scene, device="cuda", tiles=(32, 16, 64),
                                  device_ms=device_ms, plain_ms=plain_ms,
                                  library_ms=None,
                                  **sweep_bound(n_mats, 42, part))
-                msg += (f"; {name} {ms:.3f} ms ({device_ms:.3f} on the card "
+                msg += (f"; {name} {ms:.4f} ms ({device_ms:.4f} on the card "
                         f"alone), plain {plain_ms:.3f} ms")
         print(msg, flush=True)
+    # at the batch of phase 8's split fit (`split_fit`), and one matrix
+    # alone (`floor_ms`: K2a's chain of 41 rounds, K2b's 41 dependent
+    # rotation steps, with nothing to overlap)
+    for B in (fit_batch, 1):
+        for name, r in split_kernels_at(B, device).items():
+            if B == 1:
+                rec[name]["floor_ms"] = r["device_ms"]
+            else:
+                rec[name]["split_fit"] = r
+            print(f"phase 5: {name} at B={B}: {r['ms']:.4f} ms "
+                  f"({r['device_ms']:.4f} on the card alone), bound "
+                  f"{r['bound_ms']:.3g} ms", flush=True)
     print("phase 5 ok: K4, K2a, K2b agree with their plain twins", flush=True)
     return rec
 

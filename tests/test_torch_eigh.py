@@ -1,9 +1,9 @@
 """The port's parallel-Jacobi eigensolver (ops/eigh.py): the plain sweep,
 fused and split, against the JAX package's Pallas sweeps (interpret mode),
 jacobi_eigh at the bars of tests/test_pallas_eigh.py:46-54, the same rows
-at two batch sizes, and a fit through the split sweep; the fused sweep
-kernel's schedule replayed in numpy and its size list. The CUDA sweeps are
-held to the plain ones in test_torch_kernels.py."""
+at two batch sizes, and a fit through the split sweep; the sweep kernels'
+schedules (K2 with K2a's log, K2b) replayed in numpy and their size list.
+The CUDA sweeps are held to the plain ones in test_torch_kernels.py."""
 
 import os
 
@@ -186,7 +186,8 @@ def _kernel_sweep(A, Q):
     rotated and written to its permuted place (pinv); the next round's
     (c, s) come from entries recomputed out of the round's source blocks;
     Q's columns sit in label order and each pair slot's two labels step
-    down by one a round (mod D-1)."""
+    down by one a round (mod D-1). Returns (A, Q, the (B, D-1, 2, K) log of
+    each round's (c, s), as the split sweep's K2a writes it)."""
     B, D, _ = A.shape
     K, m = D // 2, D - 1
     perm = lambda j: ((j >> 1 if j >> 1 < 2 else j - 2) if j % 2 == 0
@@ -219,6 +220,7 @@ def _kernel_sweep(A, Q):
                         rot(t0, t1, cb[..., 0], sb))
 
     ks = np.arange(K)
+    log = np.empty((B, D - 1, 2, K))
     a = [A.copy(), np.empty_like(A)]
     q = np.empty_like(Q)
     q[:, :, label0] = Q
@@ -233,6 +235,7 @@ def _kernel_sweep(A, Q):
     c0 = np.vectorize(pinv)(2 * k2)
     c1 = np.vectorize(pinv)(2 * k2 + 1)
     for r in range(D - 1):
+        log[:, r] = cs.transpose(0, 2, 1)     # K2a's log: warp 0's (c, s)
         src, dst = a[r % 2], a[(r + 1) % 2]
         if r < D - 2:
             nxt = round_cs(entry(src, cs, pa, pa), entry(src, cs, qb, qb),
@@ -260,7 +263,7 @@ def _kernel_sweep(A, Q):
                             dst[:, 2 * ks, 2 * ks + 1])
             assert np.array_equal(nxt, want)
             cs = nxt
-    return a[(D - 1) % 2], q[:, :, label0]
+    return a[(D - 1) % 2], q[:, :, label0], log
 
 
 def test_kernel_schedule_is_the_plain_sweep():
@@ -274,19 +277,104 @@ def test_kernel_schedule_is_the_plain_sweep():
         x = rng.standard_normal((3, n, n))
         A = x + x.transpose(0, 2, 1)
         Q = np.linalg.qr(rng.standard_normal((3, n, n)))[0]
-        Ak, Qk = _kernel_sweep(A, Q)
+        Ak, Qk, _ = _kernel_sweep(A, Q)
         Ap, Qp = eigh.jacobi_sweep_plain(torch.tensor(A), torch.tensor(Q))
         assert np.array_equal(Ak, Ap.numpy()), n
         assert np.array_equal(Qk, Qp.numpy()), n
 
 
+def test_kernel_log_is_the_plain_log():
+    """K2a runs K2's round engine and logs the (c, s) its warp 0 computes
+    each round (round 0's from A, later ones from recomputed entries): that
+    log, in the kernel's replay above, is jacobi_sweep_a_plain's bit for bit
+    at D = 4, 6, 42 and 64 (f64)."""
+    rng = np.random.default_rng(6)
+    for n in (4, 6, 42, 64):
+        x = rng.standard_normal((2, n, n))
+        A = x + x.transpose(0, 2, 1)
+        Ak, _, log = _kernel_sweep(A, np.eye(n)[None].repeat(2, 0))
+        Ap, csp = eigh.jacobi_sweep_a_plain(torch.tensor(A))
+        assert np.array_equal(Ak, Ap.numpy()), n
+        assert np.array_equal(log, csp.numpy()), n
+
+
+def _kernel_replay(Q, cs, pairs):
+    """csrc/jacobi_sweep_split.cu's K2b in numpy, with the kernel's index
+    formulas: blocks of M = 128 // D matrices; each block's log staged as
+    (c, s) pairs into rows padded to `pairs` pairs (2 in f32, 1 in f64);
+    a thread a row of Q, label 0 in q0 and labels 1..D-1 round-relative in
+    u (u[i] is label 1 + (i - r) mod (D-1) in round r): pair 0 is (q0,
+    u[L-1]) and pair k > 0 (u[k-1], u[L-1-k]) in every round, each result
+    one place up in v, the next round's layout, then stored back through
+    label0."""
+    B, D, _ = Q.shape
+    K, L, M = D // 2, D - 1, 128 // D
+    stride = -(-2 * K // (2 * pairs)) * 2 * pairs
+    label0 = [D - 1 - (j >> 1) if j % 2 else j >> 1 for j in range(D)]
+    out = np.empty_like(Q)
+    for b0 in range(0, B, M):
+        nm = min(M, B - b0)
+        src = cs[b0:b0 + nm].reshape(-1, 2)      # the block's log, in pairs
+        ls = np.full(M * L * stride, np.nan)
+        for v in range(nm * L * K):
+            row, e = v // K, 2 * (v - (v // K) * K)
+            ls[row * stride + 2 * (e % K) + e // K] = src[v, 0]
+            ls[row * stride + 2 * ((e + 1) % K) + (e + 1) // K] = src[v, 1]
+        rows = Q[b0:b0 + nm].reshape(nm * D, D)  # thread t: row t
+        m = np.arange(nm * D) // D
+        q0, u = np.empty(nm * D), np.empty((nm * D, L))
+        for j in range(D):
+            if label0[j] == 0:
+                q0 = rows[:, j].copy()
+            else:
+                u[:, label0[j] - 1] = rows[:, j]
+        for r in range(L):
+            v = np.full_like(u, np.nan)
+            for k in range(K):
+                at = m * L * stride + r * stride + 2 * k
+                c, s = ls[at], ls[at + 1]
+                x, y = (q0 if k == 0 else u[:, k - 1]), u[:, L - 1 - k]
+                xn = c * x + (-s) * y
+                if k == 0:
+                    q0 = xn
+                else:
+                    v[:, k] = xn
+                v[:, (L - k) % L] = c * y + s * x
+            u = v
+        rows = np.stack([q0 if label0[j] == 0 else u[:, label0[j] - 1]
+                         for j in range(D)], axis=1)
+        out[b0:b0 + nm] = rows.reshape(nm, D, D)
+    return out
+
+
+def test_replay_kernel_schedule_is_the_plain_replay():
+    """K2b's index formulas (its blocks of several matrices, the log's
+    staging into padded (c, s) rows for either type's loads, Q's labels in
+    the round-relative layout and its shift by one place a round), replayed
+    in numpy in f64 on a log of the plain A phase, give
+    jacobi_replay_q_plain's bits at D = 4, 6, 42 and 64, with the last
+    block part full: after D-1 rounds the labels are back in place."""
+    rng = np.random.default_rng(8)
+    for n in (4, 6, 42, 64):
+        B = 128 // n + 1
+        x = rng.standard_normal((B, n, n))
+        _, cs = eigh.jacobi_sweep_a_plain(torch.tensor(x + x.transpose(0, 2,
+                                                                       1)))
+        Q = np.linalg.qr(rng.standard_normal((B, n, n)))[0]
+        want = eigh.jacobi_replay_q_plain(torch.tensor(Q), cs).numpy()
+        for pairs in (2, 1):
+            assert np.array_equal(_kernel_replay(Q, cs.numpy(), pairs),
+                                  want), (n, pairs)
+
+
 def test_sweep_sizes_match_the_kernel_dispatch():
-    """SWEEP_DIMS is the list of sizes jacobi_sweep.cu instantiates, and the
-    wrappers' check takes exactly those."""
+    """SWEEP_DIMS is the list of sizes jacobi_sweep.cuh's dispatch
+    instantiates (K2, K2a and K2b), and the wrappers' check takes exactly
+    those."""
     import re
 
     cu = os.path.join(os.path.dirname(eigh.__file__), "..", "csrc",
-                      "jacobi_sweep.cu")
+                      "jacobi_sweep.cuh")
     with open(cu) as f:
         src = f.read()
     macro = src[src.index("#define CELESTE_SWEEP_DIMS"):]

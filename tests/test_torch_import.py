@@ -74,7 +74,12 @@ def test_chip_smoke_phases_run_on_cpu_twins():
     cs.phase_compare(device="cpu", n_sources=2, tile=16)
     scene = cs.mcmc_scene("cpu", n_sources=2)
     rec.update(cs.phase_new_kernels(scene, device="cpu", tiles=(16,),
-                                    n_samples=2, n_mats=4))
+                                    n_samples=2, n_mats=4, fit_batch=3))
+    # the split sweep at phase 8's batch (here 3) and at B = 1 too
+    assert rec["jacobi_sweep_a"]["split_fit"]["B"] == 3
+    assert rec["jacobi_replay_q"]["split_fit"]["bound_ms"] > 0
+    assert {"floor_ms"} <= (set(rec["jacobi_sweep_a"])
+                            & set(rec["jacobi_replay_q"]))
     launches.update(cs.phase_mcmc(scene, device="cpu", bars=False, ais=dict(
         num_temperatures=2, num_samples=2, num_samples_per_chain=1)))
     cs.phase_mcmc_routes(scene, device="cpu", n_sources=2, ais=dict(

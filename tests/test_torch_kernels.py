@@ -99,18 +99,93 @@ def _spectrum_batch(device, B=64, seed=1):
     return torch.tensor(0.5 * (H + H.transpose(0, 2, 1)), device=device)
 
 
-def test_split_sweep_kernels_match_plain_and_fused(cuda):
-    A = _spectrum_batch(cuda)
-    Q = torch.eye(42, dtype=F64, device=cuda).expand_as(A)
+def _misaligned(x):
+    """A copy of x whose data starts one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("D", [4, 6, 42, 64])
+def test_split_sweep_kernels_match_plain_and_fused(cuda, D):
+    """K2a and K2b against their twins and against K2, at D = 4, 6, 42, 64
+    and B = 1, 129, 1024, 2000 (partial blocks of K2b's several matrices a
+    block, and a second wave), on a dense orthogonal Q:
+    - K2a + K2b give K2's bits, A, log and Q, in f64 and f32 (the same
+      arithmetic in the same order), and two launches give the same bits;
+    - f64: A within 1e-9 of ||H||, the log and Q within 1e-9 of the twins
+      (at D = 42, B = 64 and Q = I, A and Q within 1e-11);
+    - f32: K2b on K2a's log within 1e-5 of its twin on that log (a replay
+      amplifies no rounding: every step is an orthogonal rotation; K2a's
+      one f32 sweep does, so it is held through K2's bits, and K2 through
+      the eigensolver's bars in test_sweep_kernel_sizes_and_batches);
+    - Q and a log that do not start on 16 bytes give the same bits."""
+    if D == 42:
+        A = _spectrum_batch(cuda)
+        Q = torch.eye(42, dtype=F64, device=cuda).expand_as(A)
+        na, nq = eigh.jacobi_sweep_a.launches, eigh.jacobi_replay_q.launches
+        Ak, Qk = eigh.jacobi_sweep_split(A, Q)
+        assert (eigh.jacobi_sweep_a.launches,
+                eigh.jacobi_replay_q.launches) == (na + 1, nq + 1)
+        norm = torch.linalg.matrix_norm(A)[:, None, None]
+        for Ap, Qp in (eigh.jacobi_sweep_split_plain(A, Q),
+                       eigh.jacobi_sweep(A, Q)):
+            assert float(((Ak - Ap).abs() / norm).max()) < 1e-11
+            assert float((Qk - Qp).abs().max()) < 1e-11
+    rng = np.random.default_rng(100 + D)
+    for B in (1, 129, 1024, 2000):
+        H64, _ = _spectrum(rng, B, D)
+        Q64 = np.linalg.qr(rng.standard_normal((B, D, D)))[0]
+        for dtype in (F64, torch.float32):
+            H = torch.tensor(H64, dtype=dtype, device=cuda)
+            Q = torch.tensor(Q64, dtype=dtype, device=cuda)
+            na = eigh.jacobi_sweep_a.launches
+            nq = eigh.jacobi_replay_q.launches
+            Ak, cs = eigh.jacobi_sweep_a(H)
+            Ak2, cs2 = eigh.jacobi_sweep_a(H)
+            Qk = eigh.jacobi_replay_q(Q, cs)
+            Qk2 = eigh.jacobi_replay_q(Q, cs)
+            assert (eigh.jacobi_sweep_a.launches,
+                    eigh.jacobi_replay_q.launches) == (na + 2, nq + 2)
+            assert cs.shape == (B, D - 1, 2, D // 2)
+            assert torch.equal(Ak, Ak2) and torch.equal(cs, cs2)
+            assert torch.equal(Qk, Qk2)
+            Af, Qf = eigh.jacobi_sweep(H, Q)
+            assert torch.equal(Ak, Af) and torch.equal(Qk, Qf), (D, B, dtype)
+            assert torch.equal(
+                eigh.jacobi_replay_q(_misaligned(Q), _misaligned(cs)), Qk)
+            if dtype == F64:
+                Ap, csp = eigh.jacobi_sweep_a_plain(H)
+                Qp = eigh.jacobi_replay_q_plain(Q, csp)
+                norm = torch.linalg.matrix_norm(H)[:, None, None]
+                assert float(((Ak - Ap).abs() / norm).max()) < 1e-9, (D, B)
+                assert float((cs - csp).abs().max()) < 1e-9, (D, B)
+                assert float((Qk - Qp).abs().max()) < 1e-9, (D, B)
+            else:
+                Qp = eigh.jacobi_replay_q_plain(Q, cs)
+                assert float((Qk - Qp).abs().max()) < 1e-5, (D, B)
+
+
+def test_split_kernels_reject_unsupported_sizes_and_logs(cuda):
+    """K2a and K2b take even D in [4, 64], and K2b a (B, D-1, 2, D/2) log:
+    anything else raises ValueError before a launch."""
     na, nq = eigh.jacobi_sweep_a.launches, eigh.jacobi_replay_q.launches
-    Ak, Qk = eigh.jacobi_sweep_split(A, Q)
-    assert (eigh.jacobi_sweep_a.launches, eigh.jacobi_replay_q.launches) == (
-        na + 1, nq + 1)
-    norm = torch.linalg.matrix_norm(A)[:, None, None]
-    for Ap, Qp in (eigh.jacobi_sweep_split_plain(A, Q),
-                   eigh.jacobi_sweep(A, Q)):
-        assert float(((Ak - Ap).abs() / norm).max()) < 1e-11
-        assert float((Qk - Qp).abs().max()) < 1e-11
+    for D in (2, 41, 66):
+        A = torch.zeros(3, D, D, dtype=F64, device=cuda)
+        log = torch.zeros(3, D - 1, 2, D // 2, dtype=F64, device=cuda)
+        with pytest.raises(ValueError):
+            eigh.jacobi_sweep_a(A)
+        with pytest.raises(ValueError):
+            eigh.jacobi_replay_q(A, log)
+    Q = torch.zeros(3, 42, 42, dtype=F64, device=cuda)
+    for shape in ((3, 42, 2, 21), (3, 41, 21, 2), (2, 41, 2, 21),
+                  (3, 41, 2, 20)):
+        with pytest.raises(ValueError):
+            eigh.jacobi_replay_q(Q, torch.zeros(shape, dtype=F64,
+                                                device=cuda))
+    assert (eigh.jacobi_sweep_a.launches,
+            eigh.jacobi_replay_q.launches) == (na, nq)
 
 
 @pytest.mark.parametrize("P", [16, 32, 64])

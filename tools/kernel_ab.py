@@ -1,5 +1,5 @@
-"""The fit path's sweep (K2) and TR subproblem (K3) of two checkouts of the
-PyTorch port, timed in turns on one CUDA device.
+"""The fit path's sweep (K2), TR subproblem (K3) and split sweep (K2a, K2b)
+of two checkouts of the PyTorch port, timed in turns on one CUDA device.
 
     python3 tools/kernel_ab.py --other DIR [--batches 1024 256] [--turns 2]
 
@@ -7,15 +7,14 @@ DIR is another checkout of the repository, such as an earlier commit
 unpacked with `git archive` into the git-ignored build/. Its package is
 loaded beside this one under another name and builds its own kernels into
 DIR/build/kernels. Both wrappers get the same f32 inputs (chip_smoke.py's
-wide-spectrum matrices and TR cases) at each batch size, in turns: other,
+wide-spectrum matrices and TR cases; K2b this checkout's K2a log of them)
+at each batch size, in turns: other,
 this, this, other, `--turns` times. Per call it prints chip_smoke.timed_ms's
 caller time (`ms`) and card time (`device_ms`), and the host's time to
-enqueue one call (a loop of calls without a wait, `host_ms`). For K3 it also
-prints the host time of a bare launch of this checkout's kernel into
-outputs allocated once (`launch_ms`) and into two new `torch.empty` each
-call (`launch_empty_ms`): what reusing the outputs can save. It first
+enqueue one call (a loop of calls without a wait, `host_ms`). It first
 prints, in f64 and f32, the largest difference between the two checkouts'
-results, relative to ||H|| for K2's A.
+results, relative to ||H|| for K2's A, and absolute for K2a's A and log
+and K2b's Q.
 """
 
 import argparse
@@ -32,7 +31,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
-from celeste_jl_tpu_torch.ops import _build, eigh, tr  # noqa: E402
+from celeste_jl_tpu_torch.ops import eigh, tr  # noqa: E402
 
 
 def load_other(root, name="other_celeste_jl_tpu_torch"):
@@ -95,32 +94,32 @@ def main(argv=None):
               f" (bit-identical {torch.equal(A1, A2) and torch.equal(Q1, Q2)})"
               f"; K3 p {float((p1 - p2).abs()[fin].max()):.3g}, pred "
               f"{float((r1 - r2).abs().nan_to_num().max()):.3g}", flush=True)
+        (A1, c1), (A2, c2) = o_eigh.jacobi_sweep_a(H), eigh.jacobi_sweep_a(H)
+        Q1, Q2 = o_eigh.jacobi_replay_q(eye, c1), eigh.jacobi_replay_q(eye, c2)
+        same = all(torch.equal(x, y)
+                   for x, y in ((A1, A2), (c1, c2), (Q1, Q2)))
+        print(f"{str(dtype)[6:]} B=1024, this vs other: K2a A "
+              f"{float((A1 - A2).abs().max()):.3g}, log "
+              f"{float((c1 - c2).abs().max()):.3g}; K2b Q "
+              f"{float((Q1 - Q2).abs().max()):.3g} (bit-identical {same})",
+              flush=True)
 
     timed = lambda fn, spin: cs.timed_ms(fn, torch, reps=a.reps, spin=spin)
     for B in a.batches:
         (H, eye), k3 = inputs(B, torch.float32)
-        p, pred = (x.clone() for x in tr.tr_subproblem(*k3, 48))
-
-        def bare(empty):
-            out = ((torch.empty_like(p), torch.empty_like(pred)) if empty
-                   else (p, pred))
-            _build.launch("tr_subproblem", torch.float32, *k3, *out, B, 42,
-                          48)
-
+        cs_log = eigh.jacobi_sweep_a(H)[1]
         for turn in range(a.turns):
             for side in ("other", "this", "this", "other"):
                 e, t = sides[side]
                 for name, fn in (("K2", lambda: e.jacobi_sweep(H, eye)),
-                                 ("K3", lambda: t.tr_subproblem(*k3, 48))):
+                                 ("K3", lambda: t.tr_subproblem(*k3, 48)),
+                                 ("K2a", lambda: e.jacobi_sweep_a(H)),
+                                 ("K2b",
+                                  lambda: e.jacobi_replay_q(eye, cs_log))):
                     print(f"turn {turn} {side} {name} f32 B={B}: ms "
                           f"{timed(fn, False):.4f} device_ms "
                           f"{timed(fn, True):.4f} host_ms "
                           f"{host_ms(fn):.4f}", flush=True)
-                if side == "this":
-                    print(f"turn {turn} this K3 f32 B={B}: launch_ms "
-                          f"{host_ms(lambda: bare(False)):.4f} "
-                          f"launch_empty_ms {host_ms(lambda: bare(True)):.4f}",
-                          flush=True)
 
 
 if __name__ == "__main__":
