@@ -5,7 +5,8 @@ SourceTarget leaves, vp0s, NewtonConfig fields, PriorConstants arrays) and
 plain dataclasses (Image, CatalogEntry); `np.asarray` reads each array, so
 this module never imports jax. The tests feed both packages the same
 numbers through it. The MCMC slice has no weights: its state is the
-targets, the catalog and the prior.
+targets, the catalog and the prior; the box state
+(InferenceState.vps) is numpy on both sides.
 """
 
 import dataclasses
@@ -17,6 +18,7 @@ from .mcmc.log_prob import SourceTarget, stack_targets
 from .models.image import CatalogEntry, Image
 from .models.patches import SkyPatch
 from .ops.newton import NewtonConfig
+from .utils.config import Config
 from .vi.elbo import PriorConstants
 
 
@@ -77,3 +79,16 @@ def images(imgs):
                               else getattr(img, f.name))
                      for f in dataclasses.fields(Image)})
             for img in imgs]
+
+
+def config(cfg):
+    """The JAX utils/config.Config -> the port's (the fields the port has;
+    the same values)."""
+    return Config(**{f.name: getattr(cfg, f.name)
+                     for f in dataclasses.fields(Config)})
+
+
+def active_boxes(boxes, req):
+    """The JAX parallel/state.detection_active_boxes pair ((S, B, 4)
+    boxes, (S,) radii) -> the port's InferenceState argument."""
+    return np.array(boxes, dtype=np.float64), np.array(req, dtype=np.float64)

@@ -3,7 +3,8 @@
 A SkyPatch holds one source's five band tiles, with a leading S axis when
 stacked: (S, B, P, P) pixel fields and (S, B, ...) per-band metadata.
 `make_patch_for_source` and `make_patches_batched` build them host-side
-with numpy leaves, as the JAX package does.
+with numpy leaves, as the JAX package does; `stack_patches` moves a list
+of them onto a device.
 """
 
 from typing import NamedTuple
@@ -109,10 +110,19 @@ def make_patch_for_source(images, world_pos, radius, tile_size, psf=None):
                     pixel_center=pc, psf=psf)
 
 
-def make_patches_batched(images, positions, radii, tile_size):
+def make_patches_batched(images, positions, radii, tile_size, psfs=None,
+                         active_boxes=None):
     """`make_patch_for_source` for S sources with one vectorized gather per
-    band. positions (S, 2) world coordinates, radii (S,). Returns a list of
-    S numpy SkyPatches (views into shared buffers)."""
+    band. positions (S, 2) world coordinates, radii (S,). active_boxes:
+    optional (S, B, 4) [x_lo, x_hi, y_lo, y_hi] 1-based inclusive pixel
+    bounds of each source's active region per image (the dilated
+    detection boxes, detection.jl:152-167); default the +-radius box.
+    psfs, per-source local PSFs, need the PSF fit, which has no port yet:
+    given, it raises. Returns a list of S numpy SkyPatches (views into
+    shared buffers)."""
+    if psfs is not None:
+        raise NotImplementedError(
+            "per-source PSFs need models/psf_fit.py, not ported yet")
     positions = np.asarray(positions, dtype=np.float64)
     radii = np.asarray(radii, dtype=np.float64)
     S, B, P = len(positions), len(images), tile_size
@@ -162,8 +172,11 @@ def make_patches_batched(images, positions, radii, tile_size):
 
         i1 = ii + 1.0   # 1-based coords
         j1 = jj + 1.0
-        bx = np.stack([ctr[:, 0] - radii, ctr[:, 0] + radii,
-                       ctr[:, 1] - radii, ctr[:, 1] + radii], axis=1)
+        if active_boxes is not None:
+            bx = np.asarray(active_boxes, dtype=np.float64)[:, b]  # (S, 4)
+        else:
+            bx = np.stack([ctr[:, 0] - radii, ctr[:, 0] + radii,
+                           ctr[:, 1] - radii, ctr[:, 1] + radii], axis=1)
         inbox = (((i1 >= bx[:, 0:1]) & (i1 <= bx[:, 1:2]))[:, :, None]
                  & ((j1 >= bx[:, 2:3]) & (j1 <= bx[:, 3:4]))[:, None, :])
         mask[:, b] = inbox & valid & ~np.isnan(pix[:, b])
@@ -172,3 +185,17 @@ def make_patches_batched(images, positions, radii, tile_size):
                      offset=offset[s], wcs_jacobian=jac[s],
                      world_center=wc[s], pixel_center=pc[s], psf=psf[s])
             for s in range(S)]
+
+
+def stack_patches(patches, device, dtype):
+    """Stack per-source numpy SkyPatches into one SkyPatch with a leading S
+    axis on `device`: one host-to-device copy per field; float fields in
+    `dtype`, the mask bool and the offsets int32."""
+    out = []
+    for f in SkyPatch._fields:
+        arr = np.stack([np.asarray(getattr(p, f)) for p in patches])
+        if arr.dtype.kind == "f":
+            out.append(torch.as_tensor(arr, dtype=dtype, device=device))
+        else:
+            out.append(torch.as_tensor(arr, device=device))
+    return SkyPatch(*out)

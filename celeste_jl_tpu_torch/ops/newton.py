@@ -1,6 +1,5 @@
 """Batched Newton trust-region minimizer (port of
-celeste_jl_tpu/ops/newton.py, for tr_solver "eig" and "pjacobi" with
-secular="bisect").
+celeste_jl_tpu/ops/newton.py, for tr_solver "eig" and "pjacobi").
 
 The JAX package vmaps a lax.while_loop over lanes. Under vmap, a lane
 whose condition is false keeps its whole carry, so this port runs each
@@ -19,15 +18,17 @@ import torch
 from .eigh import (jacobi_eigh, jacobi_sweep, jacobi_sweep_plain,
                    jacobi_sweep_split, jacobi_sweep_split_plain)
 from .jacobi import pad_to_even
-from .tr import tr_subproblem, tr_subproblem_plain
+from .tr import tr_subproblem, tr_subproblem_newton, tr_subproblem_plain
 
 
 class NewtonConfig(NamedTuple):
     """The JAX NewtonConfig's fields and defaults. The port runs
     tr_solver "eig" (torch.linalg.eigh, the f64 parity route) and "pjacobi"
-    (ops/eigh.py) with secular="bisect". refresh_kernel and tr_kernel
-    "pallas" select the CUDA kernels' wrappers (ops/refresh.pixel_terms,
-    ops/tr.tr_subproblem), "xla" their plain twins. eigh_fused (the
+    (ops/eigh.py) with secular "bisect" or "newton" (bisect_iters
+    iterations either way). refresh_kernel and tr_kernel "pallas" select
+    the CUDA kernels' wrappers (ops/refresh.pixel_terms,
+    ops/tr.tr_subproblem; the latter for "bisect" only), "xla" their plain
+    twins. eigh_fused (the
     JAX package's CELESTE_EIGH_FUSED, a field here) picks the pjacobi
     sweep: the fused kernel (True) or the split pair (False)."""
     max_iters: int = 50
@@ -123,12 +124,17 @@ def minimize_newton_tr(fgh: Callable, x0: torch.Tensor,
     """
     if config.tr_solver not in ("eig", "pjacobi"):
         raise NotImplementedError(f"tr_solver={config.tr_solver!r}")
-    if config.secular != "bisect":
+    if config.secular not in ("bisect", "newton"):
         raise NotImplementedError(f"secular={config.secular!r}")
     if fg is None:
         fg = lambda x: fgh(x)[:2]
-    tr_solve = (tr_subproblem if config.tr_kernel == "pallas" and not plain
-                else tr_subproblem_plain)
+    # K3 serves the bisection alone, as the JAX package's TR kernel does
+    if config.secular == "newton":
+        tr_solve = tr_subproblem_newton
+    elif config.tr_kernel == "pallas" and not plain:
+        tr_solve = tr_subproblem
+    else:
+        tr_solve = tr_subproblem_plain
     if config.eigh_fused:
         sweep = jacobi_sweep_plain if plain else jacobi_sweep
     else:

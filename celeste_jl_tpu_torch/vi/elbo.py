@@ -49,6 +49,13 @@ def moment_grids_from_fs(C, fs0m, fs1m):
     return E_G_s, E_G2_s - E_G_s ** 2
 
 
+def source_moment_grids(vp, patch):
+    """E[G]_s and Var[G]_s images of each source on its patch tiles, each
+    (S, B, P, P), from vp (S, 44)."""
+    fs0m, fs1m = source_fs_grids(vp, patch)
+    return moment_grids_from_fs(brightness_coeffs(vp), fs0m, fs1m)
+
+
 def pixel_log_likelihood(E_G_s, var_G_s, patch, bg_E_G=None, bg_var_G=None):
     """Masked Poisson-lower-bound log likelihood per source, (S,)."""
     E_G = patch.sky + E_G_s
@@ -72,8 +79,7 @@ def pixel_log_likelihood(E_G_s, var_G_s, patch, bg_E_G=None, bg_var_G=None):
 
 def elbo_likelihood(vp, patch, bg_E_G=None, bg_var_G=None):
     """Expected log likelihood of each source's active pixels, (S,)."""
-    fs0m, fs1m = source_fs_grids(vp, patch)
-    E_G_s, var_G_s = moment_grids_from_fs(brightness_coeffs(vp), fs0m, fs1m)
+    E_G_s, var_G_s = source_moment_grids(vp, patch)
     return pixel_log_likelihood(E_G_s, var_G_s, patch, bg_E_G, bg_var_G)
 
 

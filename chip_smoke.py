@@ -46,12 +46,27 @@ Phases, one line each; the first failure exits non-zero:
      least 7 of 8 sources;
   8. the fit of phase 4 with the split sweep (NewtonConfig.eigh_fused =
      False) against the fused one, f64, 256 sources: no flip, the same
-     iterations per lane, ELBOs within 1e-9 relative.
+     iterations per lane, ELBOs within 1e-9 relative;
+  9. one sky box end to end: benchmark/run_field.py's field of record (512
+     sources on 1024 x 1024 px, seed 7) drawn on the card, then
+     infer_box(joint_vi): detection (native labelling) and the host-driven
+     joint schedule through K1-K3, f32, scored as run_field.py scores it;
+     then single_vi on the same images and detections. Prints detect and
+     infer seconds, sources/s, completeness, type accuracy, median r-flux
+     error, the fit launches by lane width and K1-K3's launches by width,
+     and times K1-K3 at the joint run's median fit-launch width. Bars:
+     every ELBO finite, no failure, K1-K3 each launched, native detection
+     built, completeness >= 0.95 and (joint_vi) type accuracy >= 0.90;
+ 10. the joint field path through the kernels and through the plain twins
+     (infer_box(plain=True)), f64, 32 sources on 256 x 256 px (phase 9's
+     density): 0 classification flips, no source's ELBO worse than 1e-4
+     relative; each departure printed.
 Each phase prints its wall time. The line before the last is the kernels'
 JSON record (each kernel's launches counted on its path: phase 3 for K1-K3,
-6 for K4, 8 for K2a/K2b; its bound from this run's shapes at the H100's
-published f32 and memory peaks); the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+6 for K4, 8 for K2a/K2b, and `field_launches` on phase 9's joint run; its
+bound from this run's shapes at the H100's published f32 and memory
+peaks); the last line is {"ok": true, "device": {...}}. Imports nothing of
+JAX.
 """
 
 import json
@@ -76,6 +91,13 @@ K4_F32_TOL = 2e-4     # tests/test_pallas_render.py:70
 SPLIT_F64_TOL = 1e-11  # of ||H||, as K2's sweep in phase 2
 COVERAGE_BAR = 0.85   # 2-sd coverage; the JAX run gave 0.906-0.984
 SPLIT_ELBO_TOL = 1e-9
+# phase 9's quality bars: benchmark/run_field.py's score on its field of
+# record (the JAX package's runs reached 0.977 and 0.935,
+# benchmark/field_results.md)
+FIELD_COMPLETENESS_BAR = 0.95
+FIELD_TYPE_BAR = 0.90
+# the field path's kernels
+FIELD_KERNELS = ("refresh", "jacobi_sweep", "tr_subproblem")
 # the AIS program of benchmark/bench_mcmc.py (the production config)
 FULL_AIS = dict(num_temperatures=50, num_samples=10, num_samples_per_chain=25)
 ROUTE_AIS = dict(num_temperatures=20, num_samples=4, num_samples_per_chain=10)
@@ -1077,6 +1099,297 @@ def phase_split_fit(device="cuda", n_sources=256, tile=32):
     return launches
 
 
+def field_scene(n_sources, size, seed, device):
+    """benchmark/run_field.py's field: n_sources from default_rng(seed),
+    the first half stars (r-flux lognormal(3.0, 0.6)), the rest galaxies
+    (lognormal(3.2, 0.5), radius lognormal(0.7, 0.3) px, axis ratio
+    0.25-0.9, any angle), 16 px from the edges of a size x size 5-band
+    image (sky 0.05 nMgy, 800 e-/nMgy), drawn by gen_images_fast on
+    `device`. Returns (images, truth)."""
+    from celeste_jl_tpu_torch.synthetic import (gen_images_fast,
+                                                make_blank_images,
+                                                sample_galaxy, sample_star)
+
+    margin = 16.0
+    rng = np.random.default_rng(seed)
+    truth = []
+    pos = margin + rng.random((n_sources, 2)) * (size - 2 * margin)
+    for i in range(n_sources):
+        p = tuple(pos[i])
+        if i < n_sources // 2:
+            truth.append(sample_star(pos=p, r_flux=float(
+                np.exp(rng.normal(3.0, 0.6)))))
+        else:
+            truth.append(sample_galaxy(
+                pos=p, r_flux=float(np.exp(rng.normal(3.2, 0.5))),
+                gal_radius_px=float(np.exp(rng.normal(0.7, 0.3))),
+                gal_axis_ratio=float(rng.uniform(0.25, 0.9)),
+                gal_angle=float(rng.uniform(0.0, np.pi))))
+    images = make_blank_images(H=size, W=size, sky_nmgy=0.05,
+                               nelec_per_nmgy=800.0)
+    gen_images_fast(images, truth, seed=seed, device=device)
+    return images, truth
+
+
+def field_score(results, truth):
+    """benchmark/run_field.py's score(): results matched to the truth
+    within 2 px (identity WCS), type accuracy over the matched, and the
+    r-flux relative errors of the matched under the fitted type. Returns
+    (matched, type accuracy, errors)."""
+    from scipy.spatial import cKDTree
+
+    from celeste_jl_tpu_torch.models.params import ids
+
+    if not results:
+        return 0, 0.0, []
+    tpos = np.array([t.pos for t in truth])
+    rpos = np.array([r.init_pos for r in results])
+    dist, nearest = cKDTree(tpos).query(rpos, k=1)
+    matched = dist < 2.0
+    type_ok, errs = 0, []
+    for r, t_i, m in zip(results, nearest, matched):
+        if not m:
+            continue
+        t = truth[t_i]
+        p_star = r.vs[ids.is_star[0]]
+        type_ok += int((p_star > 0.5) == t.is_star)
+        tf = (t.star_fluxes if t.is_star else t.gal_fluxes)[2]
+        j = 0 if p_star > 0.5 else 1
+        f = float(np.exp(r.vs[ids.flux_loc[j]]
+                         + 0.5 * r.vs[ids.flux_scale[j]]))
+        errs.append(abs(f - tf) / tf)
+    n_match = int(matched.sum())
+    return n_match, type_ok / max(n_match, 1), errs
+
+
+class KernelWidths:
+    """Counts, while open, each field-path kernel's launches by width (K1:
+    rows, K2 and K3: lanes), read at `_build.launch`; the wrappers' own
+    launch counters are reset on entry."""
+
+    _WIDTH_ARG = {"refresh": -5, "jacobi_sweep": -2, "tr_subproblem": -3}
+
+    def __enter__(self):
+        import collections
+
+        from celeste_jl_tpu_torch.ops import _build, eigh, refresh, tr
+
+        self.fns = {"refresh": refresh.pixel_terms,
+                    "jacobi_sweep": eigh.jacobi_sweep,
+                    "tr_subproblem": tr.tr_subproblem}
+        for fn in self.fns.values():
+            fn.launches = 0
+        self.widths = {k: collections.Counter() for k in self.fns}
+        self._build, self._launch = _build, _build.launch
+
+        def launch(name, dtype, *args):
+            if name in self.widths:
+                self.widths[name][int(args[self._WIDTH_ARG[name]])] += 1
+            return self._launch(name, dtype, *args)
+
+        _build.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self._build.launch = self._launch
+
+    def launches(self):
+        return {k: fn.launches for k, fn in self.fns.items()}
+
+    def summary(self):
+        return "; ".join(
+            f"{k} {fn.launches} launches, widths "
+            + ", ".join(f"{w}x{n}" for w, n in sorted(self.widths[k].items()))
+            for k, fn in self.fns.items())
+
+
+def field_run(images, truth, method, device, dtype, label, bars,
+              **kw):
+    """One infer_box-path run on the field, scored and checked; prints its
+    lines. kw: infer_box's (joint_vi) or one_node_single_infer's
+    arguments. Returns (results, launches, fit-launch widths, the
+    detection's (catalog, boxes) or None)."""
+    import torch
+
+    from celeste_jl_tpu_torch.parallel import run
+    from celeste_jl_tpu_torch.utils import telemetry
+
+    detect = {}
+    detect_sources = run.detect_sources
+
+    def timed_detect(*a, **k):
+        t = time.perf_counter()
+        out = detect_sources(*a, **k)
+        detect["s"] = time.perf_counter() - t
+        detect["out"] = out
+        return out
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    run.detect_sources = timed_detect
+    try:
+        with KernelWidths() as kw_rec:
+            t0 = time.perf_counter()
+            if method == "joint_vi":
+                res = run.infer_box(images, method=method, device=device,
+                                    dtype=dtype, **kw)
+            else:
+                res = run.one_node_single_infer(
+                    kw.pop("catalog"), images, device=device, dtype=dtype,
+                    **kw)
+            wall = time.perf_counter() - t0
+    finally:
+        run.detect_sources = detect_sources
+    c = telemetry.counters
+    t_det = detect.get("s", 0.0)
+    t_inf = wall - t_det
+    n_match, acc, errs = field_score(res, truth)
+    elbos = np.array([r.elbo for r in res])
+    completeness = n_match / len(truth)
+    med = float(np.median(errs)) if errs else float("nan")
+    launches = kw_rec.launches()
+    fit_widths = dict(sorted(c.lane_widths.items()))
+    print(f"{label} {method}: detect {t_det:.3f} s, infer {t_inf:.3f} s, "
+          f"{len(res) / t_inf:.3f} sources/s (infer); detected {len(res)}, "
+          f"matched {n_match}, completeness {completeness:.4f}; type "
+          f"accuracy {acc:.4f}; median r-flux rel err {med:.4f}; "
+          f"{c.launches} fit launches by lane width {fit_widths}, lane "
+          f"fill {c.lane_fill():.4f}; failures {c.failures}", flush=True)
+    print(f"{label} {method} kernels: {kw_rec.summary()}", flush=True)
+    if bars:
+        msg = (f"{label} {method}: finite ELBOs "
+               f"{bool(np.all(np.isfinite(elbos)))}, failures {c.failures}, "
+               f"launches {launches}, native detection "
+               f"{_native_available()}, completeness {completeness:.4f} "
+               f"(bar {FIELD_COMPLETENESS_BAR}), type accuracy {acc:.4f}")
+        ok = (np.all(np.isfinite(elbos)) and c.failures == 0
+              and _native_available()
+              and completeness >= FIELD_COMPLETENESS_BAR)
+        if method == "joint_vi":
+            msg += f" (bar {FIELD_TYPE_BAR})"
+            ok = ok and acc >= FIELD_TYPE_BAR
+        if device == "cuda":
+            ok = ok and all(n > 0 for n in launches.values())
+        check(bool(ok), msg)
+    return res, launches, fit_widths, detect.get("out")
+
+
+def _native_available():
+    from celeste_jl_tpu_torch.detection import _native
+
+    return _native.available()
+
+
+def phase_field(device="cuda", n_sources=512, size=1024, seed=7, rec=None,
+                config=None, single_newton=None, bars=True):
+    """benchmark/run_field.py's field at its size of record through the
+    port's infer_box (detection, then joint_vi's host-driven schedule),
+    f32, scored as run_field.py scores it; then single_vi on the same
+    images, detected catalog and footprints. With `rec`, K1-K3 are timed
+    at the joint run's median fit-launch width. config (default Config())
+    and single_newton (the single_vi run's NewtonConfig, default
+    NewtonConfig()) shorten the schedule for a CPU rehearsal, bars=False
+    skips the quality bars there. Returns the joint run's launches."""
+    import torch
+
+    from celeste_jl_tpu_torch.ops.newton import NewtonConfig
+    from celeste_jl_tpu_torch.parallel.state import detection_active_boxes
+    from celeste_jl_tpu_torch.utils.config import Config
+
+    check(_native_available(), "phase 9: the native detection library did "
+          "not build")
+    t0 = time.perf_counter()
+    images, truth = field_scene(n_sources, size, seed, device)
+    print(f"phase 9: field {n_sources} sources, {size}x{size} px, seed "
+          f"{seed}, drawn in {time.perf_counter() - t0:.3f} s", flush=True)
+    detect = dict(thresh=6.0, boxsize=(size, size), match_radius_deg=1.0)
+    _, launches, widths, (catalog, det_boxes) = field_run(
+        images, truth, "joint_vi", device, torch.float32, "phase 9", bars,
+        config=config or Config(), **detect)
+    field_run(images, truth, "single_vi", device, torch.float32, "phase 9",
+              bars, catalog=catalog,
+              active_boxes=detection_active_boxes(catalog, det_boxes, images),
+              newton_config=single_newton or NewtonConfig())
+    if rec is not None and widths:
+        W = int(np.median(np.repeat(list(widths), list(widths.values()))))
+        for name, r in fit_kernels_at(W, device).items():
+            rec[name]["field"] = r
+        rec["refresh"]["field"] = refresh_kernel_at(W, 32, device)
+        for name in FIELD_KERNELS:
+            r = rec[name]["field"]
+            print(f"phase 9: {name} at the median fit-launch width W={W}: "
+                  f"{r['ms']:.4f} ms ({r['device_ms']:.4f} on the card "
+                  f"alone), bound {r['bound_ms']:.3g} ms", flush=True)
+    print("phase 9 ok", flush=True)
+    return launches
+
+
+def refresh_kernel_at(n_sources, tile, device="cuda"):
+    """K1 at n_sources lanes (5 rows each) on tile x tile, f32, timed."""
+    import torch
+
+    from celeste_jl_tpu_torch.ops import refresh
+
+    rows, ks, pdims = refresh_rows(n_sources, tile, device, torch.float32)
+    time_fn = ((lambda fn, spin=False: timed_ms(fn, torch, spin=spin))
+               if device == "cuda" else (lambda fn, spin=False: float("nan")))
+    kernel = lambda: refresh.pixel_terms(*rows, ks=ks, pdims=pdims)
+    G, C = rows[2].shape
+    N = rows[6].shape[-1]
+    nbytes = 4 * (G * C * 42 + G * 6 + 5 * G * N + G * C * 15 + G * 72)
+    return dict(B=G, ms=time_fn(kernel), device_ms=time_fn(kernel, spin=True),
+                **bound(float(rows[7].sum()) * (60 * C + 400), nbytes))
+
+
+def phase_field_routes(device="cuda", n_sources=32, size=256, seed=7,
+                       config=None):
+    """The field path through the kernels and through their plain twins
+    (infer_box(plain=True)), f64, on run_field.py's density: phase 4's bar
+    (0 classification flips, no source's ELBO worse than 1e-4 relative),
+    each departure printed."""
+    import torch
+
+    from celeste_jl_tpu_torch.models.params import ids
+    from celeste_jl_tpu_torch.parallel.run import infer_box
+    from celeste_jl_tpu_torch.utils.config import Config
+
+    images, _ = field_scene(n_sources, size, seed, device)
+    kw = dict(method="joint_vi", config=config or Config(), device=device,
+              dtype=torch.float64, thresh=6.0, boxsize=(size, size),
+              match_radius_deg=1.0)
+    t0 = time.perf_counter()
+    with KernelWidths() as rk_rec:
+        rk = infer_box(images, **kw)
+    t1 = time.perf_counter()
+    rp = infer_box(images, plain=True, **kw)
+    t2 = time.perf_counter()
+    check(len(rk) == len(rp) > 0 and all(
+        np.array_equal(a.init_pos, b.init_pos) for a, b in zip(rk, rp)),
+        "phase 10: the two routes detected different catalogs")
+    star_k = np.array([r.vs[ids.is_star[0]] > 0.5 for r in rk])
+    star_p = np.array([r.vs[ids.is_star[0]] > 0.5 for r in rp])
+    ek = np.array([r.elbo for r in rk])
+    ep = np.array([r.elbo for r in rp])
+    rel = (ek - ep) / np.abs(ep)
+    for i in np.nonzero((star_k != star_p) | (rel != 0.0))[0]:
+        print(f"phase 10: source {i} at {rk[i].init_pos}: star {star_k[i]} "
+              f"(kernels) / {star_p[i]} (plain), ELBO rel {rel[i]:.3g}",
+              flush=True)
+    flips = int(np.sum(star_k != star_p))
+    msg = (f"phase 10: {len(rk)} sources f64, kernels vs plain twins: "
+           f"{flips} classification flips; ELBO rel worst {rel.min():.3g}, "
+           f"best {rel.max():.3g}; kernels {t1 - t0:.3f} s, plain "
+           f"{t2 - t1:.3f} s; {rk_rec.summary()}; bar: 0 flips, worst > "
+           f"-{SLICE_ELBO_TOL:g}")
+    check(flips == 0 and bool(np.all(np.isfinite(ek)))
+          and bool(np.all(rel > -SLICE_ELBO_TOL)), msg)
+    if device == "cuda":
+        check(all(n > 0 for n in rk_rec.launches().values()),
+              f"phase 10: a field kernel never launched: {rk_rec.launches()}")
+    print(msg, flush=True)
+    print("phase 10 ok", flush=True)
+
+
 SOURCES = {
     "refresh": ("celeste_jl_tpu_torch/csrc/refresh.cu",
                 "celeste_jl_tpu/ops/pallas_refresh.py:186"),
@@ -1122,12 +1435,19 @@ def main():
         t0 = time.perf_counter()
         launches.update(phase_split_fit())
         _phase_clock(8, t0)
+        t0 = time.perf_counter()
+        field = phase_field(rec=rec)
+        _phase_clock(9, t0)
+        t0 = time.perf_counter()
+        phase_field_routes()
+        _phase_clock(10, t0)
     except PhaseError as e:
         print(f"FAILED: {e}", flush=True)
         return 1
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k][0],
-             replaces=SOURCES[k][1], launches=launches[k], **rec[k])
+             replaces=SOURCES[k][1], launches=launches[k],
+             field_launches=field.get(k, 0), **rec[k])
         for k in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,7 @@ for m in mods:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'celeste_jl_tpu'))
-print(len(mods), bad)
+print(len(mods), bad, mods)
 assert not bad, bad
 """
 
@@ -43,7 +43,12 @@ def test_port_modules_import_without_jax():
     proc = _run(["-c", _IMPORT_ALL], ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 16, proc.stdout
+    assert n_modules >= 36, proc.stdout
+    for m in ("utils.log", "utils.telemetry", "utils.coordinates",
+              "io.dataset", "detection._native", "detection.background",
+              "detection.extract", "detection.detect", "parallel.partition",
+              "parallel.packing", "parallel.run"):
+        assert f"celeste_jl_tpu_torch.{m}" in proc.stdout, m
 
 
 def test_chip_smoke_fails_without_cuda_or_checkout(tmp_path):
@@ -60,7 +65,7 @@ def test_chip_smoke_fails_without_cuda_or_checkout(tmp_path):
 
 
 def test_chip_smoke_phases_run_on_cpu_twins():
-    """Phases 2-8 of chip_smoke.py at tiny sizes on CPU tensors, where every
+    """Phases 2-10 of chip_smoke.py at tiny sizes on CPU tensors, where every
     wrapper runs its plain twin: this holds the script's control flow and
     checks, not the kernels (those run only on the card)."""
     import chip_smoke as cs
@@ -85,6 +90,18 @@ def test_chip_smoke_phases_run_on_cpu_twins():
     cs.phase_mcmc_routes(scene, device="cpu", n_sources=2, ais=dict(
         num_temperatures=2, num_samples=2, num_samples_per_chain=1))
     launches.update(cs.phase_split_fit(device="cpu", n_sources=2, tile=16))
+    # the field phases on a 4-source 48x48 field, the schedule cut short
+    from celeste_jl_tpu_torch.ops.newton import NewtonConfig
+    from celeste_jl_tpu_torch.utils.config import Config
+
+    tiny = Config(num_joint_vi_iters=1, joint_step_refreshes=2,
+                  polish_refreshes=2, polish_sweeps=1, probe_refreshes=2)
+    field = cs.phase_field(device="cpu", n_sources=4, size=48, rec=rec,
+                           config=tiny, single_newton=NewtonConfig(
+                               max_iters=2), bars=False)
+    assert field == {k: 0 for k in cs.FIELD_KERNELS}
+    assert all(rec[k]["field"]["bound_ms"] > 0 for k in cs.FIELD_KERNELS)
+    cs.phase_field_routes(device="cpu", n_sources=4, size=48, config=tiny)
     assert set(rec) == set(launches) == set(cs.SOURCES)
     assert all(r["max_abs_err"] == 0.0 for r in rec.values())
     assert all(r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")

@@ -167,6 +167,48 @@ def test_split_sweep_kernels_match_plain_and_fused(cuda, D):
                 assert float((Qk - Qp).abs().max()) < 1e-5, (D, B)
 
 
+def _replay_q_fma(Q, cs):
+    """jacobi_replay_q_plain with K2b's rounding: each rotated entry is
+    fma(c, own, sgn_s * other) (csrc/jacobi_round.cuh), emulated in f64
+    (c * own is exact there) and rounded once more to f32."""
+    from celeste_jl_tpu_torch.ops.jacobi import _round_robin_perm
+
+    B, D, _ = Q.shape
+    perm = torch.as_tensor(_round_robin_perm(D), device=Q.device)
+    for r in range(cs.shape[1]):
+        c, s = cs[:, r, 0][:, None], cs[:, r, 1][:, None]
+        y = Q.reshape(B, D, D // 2, 2)
+        y0, y1 = y[..., 0], y[..., 1]
+        q0 = (c.double() * y0.double() + ((-s) * y1).double()).float()
+        q1 = (c.double() * y1.double() + (s * y0).double()).float()
+        Q = torch.stack([q0, q1], dim=-1).reshape(B, D, D)[:, :, perm]
+    return Q
+
+
+def test_split_replay_and_twin_are_deterministic(cuda):
+    """chip_smoke.py phase 5's f32 input (1024 wide-spectrum matrices, K2a's
+    log replayed on an expanded identity): K2b and its twin each give the
+    same bytes on two calls; they differ (K2b rounds each rotated entry
+    once, in an fma, the twin its two products and their sum) by at most
+    a few f32 ulps of |q| <= 1, and K2b is the twin with the fma's
+    rounding to all but a few entries (the emulation rounds twice)."""
+    import chip_smoke
+
+    H = torch.as_tensor(chip_smoke.wide_spectrum_batch(
+        np.random.default_rng(0), 1024), dtype=torch.float32, device=cuda)
+    eye = torch.eye(42, dtype=torch.float32, device=cuda).expand_as(H)
+    _, cs = eigh.jacobi_sweep_a(H)
+    kernel = [eigh.jacobi_replay_q(eye, cs) for _ in range(2)]
+    twin = [eigh.jacobi_replay_q_plain(eye, cs) for _ in range(2)]
+    assert torch.equal(kernel[0], kernel[1])
+    assert torch.equal(twin[0], twin[1])
+    diff = (kernel[0] - twin[0]).abs()
+    assert 0 < float(diff.max()) <= 1e-6
+    emulated = _replay_q_fma(eye.contiguous(), cs)
+    assert int((emulated != kernel[0]).sum()) <= 100
+    assert float((emulated - kernel[0]).abs().max()) <= 1e-6
+
+
 def test_split_kernels_reject_unsupported_sizes_and_logs(cuda):
     """K2a and K2b take even D in [4, 64], and K2b a (B, D-1, 2, D/2) log:
     anything else raises ValueError before a launch."""
