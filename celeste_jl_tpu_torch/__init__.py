@@ -1,16 +1,18 @@
 """PyTorch / CUDA port of celeste_jl_tpu for NVIDIA Hopper (sm_90a).
 
 The JAX package `celeste_jl_tpu` stays the reference; this package mirrors
-its layout (models/, ops/, vi/, mcmc/, parallel/, utils/, synthetic.py) so
-every counterpart is easy to find. It imports torch and never jax, nor
-anything of `celeste_jl_tpu`: the numpy-only modules it needs
-(models/params.py, models/priors.py with data/priors.npz, models/image.py,
-vi/init.py) are its own copies.
+its layout (io/, models/, ops/, vi/, mcmc/, parallel/, utils/, main.py,
+synthetic.py) so every counterpart is easy to find. It imports torch and
+never jax, nor anything of `celeste_jl_tpu`: the numpy-only modules it
+needs (io/, models/params.py, models/priors.py with data/priors.npz,
+models/image.py, vi/init.py) are its own copies.
 
 Slices ported so far: the batched source fit that bench.py times,
-`vi.optimize.fit_sources_compacted` with the pjacobi trust-region solver,
-and MCMC/AIS, `mcmc.infer.run_ais_batched`, through hand-written CUDA
-kernels (csrc/):
+`vi.optimize.fit_sources_compacted` with the pjacobi trust-region solver;
+MCMC/AIS, `mcmc.infer.run_ais_batched`; one sky box,
+`parallel.run.infer_box`; and the survey app, `python -m
+celeste_jl_tpu_torch` (main.py: SDSS FITS files in, PSF fits, inference,
+a saved catalog out), through hand-written CUDA kernels (csrc/):
   refresh.cu        the analytic-Hessian refresh pixel pass (ops/refresh.py)
   jacobi_sweep.cu   one parallel-Jacobi eigensolver sweep (ops/eigh.py)
   jacobi_sweep_split.cu  the same sweep in two launches, A rounds with a

@@ -26,8 +26,8 @@ class BoundingBox:
 
 class SurveyDataSet:
     """Abstract survey dataset: knows how to load calibrated images covering
-    a BoundingBox (dataset.jl:35-39). The JAX package's SDSS and DECaLS
-    readers have no port yet (ROADMAP queue 1, B1 and B2)."""
+    a BoundingBox (dataset.jl:35-39). Concrete: SDSSDataSet (io/sdss.py),
+    DECALSDataSet (io/decals.py)."""
 
     def load_images(self, box: BoundingBox):
         raise NotImplementedError

@@ -117,12 +117,9 @@ def make_patches_batched(images, positions, radii, tile_size, psfs=None,
     optional (S, B, 4) [x_lo, x_hi, y_lo, y_hi] 1-based inclusive pixel
     bounds of each source's active region per image (the dilated
     detection boxes, detection.jl:152-167); default the +-radius box.
-    psfs, per-source local PSFs, need the PSF fit, which has no port yet:
-    given, it raises. Returns a list of S numpy SkyPatches (views into
-    shared buffers)."""
-    if psfs is not None:
-        raise NotImplementedError(
-            "per-source PSFs need models/psf_fit.py, not ported yet")
+    psfs: optional (S, B, K, 6) per-source local PSFs
+    (models/psf_fit.fit_patch_psfs); default each image's PSF. Returns a
+    list of S numpy SkyPatches (views into shared buffers)."""
     positions = np.asarray(positions, dtype=np.float64)
     radii = np.asarray(radii, dtype=np.float64)
     S, B, P = len(positions), len(images), tile_size
@@ -134,9 +131,13 @@ def make_patches_batched(images, positions, radii, tile_size, psfs=None,
     jac = np.zeros((S, B, 2, 2), dtype=np.float64)
     wc = np.broadcast_to(positions[:, None, :], (S, B, 2)).copy()
     pc = np.zeros((S, B, 2), dtype=np.float64)
-    psf = np.broadcast_to(
-        np.stack([np.asarray(img.psf, dtype=np.float64) for img in images]),
-        (S, B) + np.shape(images[0].psf)).copy()
+    if psfs is not None:
+        psf = np.asarray(psfs, dtype=np.float64)
+    else:
+        psf = np.broadcast_to(
+            np.stack([np.asarray(img.psf, dtype=np.float64)
+                      for img in images]),
+            (S, B) + np.shape(images[0].psf)).copy()
 
     ar = np.arange(P)
     for b, img in enumerate(images):

@@ -5,6 +5,20 @@ celeste_jl_tpu/models/psf.py). Packed (..., K, 6) rows are
 import numpy as np
 import torch
 
+from .bvn import eval_bvn_mixture_grid
+
+
+def make_psf(alphas, mus, covs):
+    """Pack a PSF mixture. alphas (K,), mus (K, 2), covs (K, 2, 2) ->
+    (K, 6) numpy."""
+    alphas = np.asarray(alphas, dtype=np.float64)
+    mus = np.asarray(mus, dtype=np.float64)
+    covs = np.asarray(covs, dtype=np.float64)
+    return np.concatenate(
+        [alphas[:, None], mus,
+         covs[:, 0, 0, None], covs[:, 0, 1, None], covs[:, 1, 1, None]],
+        axis=1)
+
 
 def psf_alphas(psf):
     return psf[..., 0]
@@ -29,10 +43,7 @@ def gaussian_psf(sigma=1.5, K=2):
         alphas = [0.8] + [0.2 / (K - 1)] * (K - 1)
         scales = [1.0] + [2.0] * (K - 1)
     covs = np.stack([np.eye(2) * (sigma * s) ** 2 for s in scales])
-    return np.concatenate(
-        [np.asarray(alphas, np.float64)[:, None], np.zeros((K, 2)),
-         covs[:, 0, 0, None], covs[:, 0, 1, None], covs[:, 1, 1, None]],
-        axis=1)
+    return make_psf(alphas, np.zeros((K, 2)), covs)
 
 
 def get_psf_width(psf, width_scale=1.0):
@@ -49,3 +60,16 @@ def get_psf_width(psf, width_scale=1.0):
             w += alphas[k] * major_sd
             total += alphas[k]
     return width_scale * w / total
+
+
+def render_psf(psf, size=51):
+    """Rasterize PSF mixtures (..., K, 6) onto size x size grids centered on
+    the stamp center (model/psf_model.jl:61-75), (..., size, size). A numpy
+    psf renders in float64 on the CPU; a tensor in its dtype and device."""
+    psf = torch.as_tensor(psf, dtype=None if torch.is_tensor(psf)
+                          else torch.float64)
+    c = (size + 1) / 2.0
+    i = torch.arange(1, size + 1, dtype=psf.dtype, device=psf.device)
+    x1, x2 = torch.meshgrid(i, i, indexing="ij")
+    return eval_bvn_mixture_grid(x1, x2, psf_mus(psf) + c, psf_covs(psf),
+                                 psf_alphas(psf))

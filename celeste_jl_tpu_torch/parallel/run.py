@@ -28,7 +28,9 @@ from ..ops.newton import NewtonConfig
 from ..utils import log as Log
 from ..utils import telemetry
 from ..utils.config import Config
+from ..utils.device import resolve
 from ..vi.init import generic_init_source
+from ..vi.stochastic import SVIConfig, svi_maximize
 from .common import (TILE_BUCKETS, _beats, _next_pow2, _render_neighbor_bg,
                      is_production_run)
 from .packing import (_dual_chunk_cap, _pow2_chunks, _waves, color_classes,
@@ -173,7 +175,7 @@ def one_node_joint_infer(catalog, images, target_sources=None,
     plain: run every kernel's plain twin (the comparison route)."""
     st = state or InferenceState(catalog, images, config, target_sources,
                                  max_neighbors, active_boxes=active_boxes,
-                                 device=device, dtype=dtype)
+                                 device=device, dtype=dtype, plain=plain)
     newton_config = _platform_newton_config(newton_config, st.device)
     step_config = _capped_step_config(newton_config, config)
     restart_cfg = _probe_config(newton_config, config)
@@ -350,7 +352,7 @@ def one_node_single_infer(catalog, images, target_sources=None,
     initialization (ParallelRun.jl:546-607 + process_source :468-498)."""
     st = state or InferenceState(catalog, images, config, target_sources,
                                  max_neighbors, active_boxes=active_boxes,
-                                 device=device, dtype=dtype)
+                                 device=device, dtype=dtype, plain=plain)
     newton_config = _platform_newton_config(newton_config, st.device)
     # the background comes from the initial vps for every target, as in
     # the reference's per-source ElboArgs: snapshot first
@@ -363,6 +365,60 @@ def one_node_single_infer(catalog, images, target_sources=None,
     for p in pend:
         st.finish_group(p)
     telemetry.counters.report("single infer")
+    return _collect_results(st)
+
+
+def one_node_svi_infer(catalog, images, target_sources=None,
+                       config=Config(), svi_config=None, max_neighbors=8,
+                       state=None, active_boxes=None, seed=42, *,
+                       device="cuda", dtype=torch.float32):
+    """Independent per-source fits by pixel-minibatch stochastic VI
+    (vi/stochastic.svi_maximize) with the neighbors fixed at their
+    catalog initialization: the single_vi schedule with Adam on minibatches
+    in place of Newton trust-region, one launch per tile bucket at the
+    bucket's own width. The subsamples come from one torch.Generator on the
+    device, seeded with `seed`."""
+    svi_config = svi_config or SVIConfig()
+    st = state or InferenceState(catalog, images, config, target_sources,
+                                 max_neighbors, active_boxes=active_boxes,
+                                 device=device, dtype=dtype)
+    vps0 = st.vps.copy()
+    gen = torch.Generator(device=st.device)
+    gen.manual_seed(seed)
+    telemetry.counters.reset()
+    for P in TILE_BUCKETS:
+        idx = [s for s in st.targets if st.tile[s] == P]
+        if not idx:
+            continue
+        t0 = telemetry.now()
+        try:
+            patches, counts = st.stacked_patches(idx)
+            bg_E, bg_V = _render_neighbor_bg(st.tensor(vps0[st.nb_idx[idx]]),
+                                             st.tensor(st.nb_mask[idx]),
+                                             patches)
+            res = svi_maximize(st.tensor(vps0[idx]), patches, bg_E, bg_V,
+                               config=svi_config, generator=gen)
+            vp = res.vp.double().cpu().numpy()
+            elbo_v = res.elbo.double().cpu().numpy()
+        except Exception as exc:
+            # production: log, count, keep the sources as they were
+            if not is_production_run():
+                raise
+            Log.exception(exc)
+            telemetry.counters.failures += len(idx)
+            continue
+        telemetry.record_launch_wall(t0, f"svi n={len(idx)} P{P}")
+        idxa = np.asarray(idx)
+        st.vps[idxa] = vp
+        st.elbos[idxa] = elbo_v
+        st.converged[idxa] = np.isfinite(elbo_v)
+        st.iters[idxa] += svi_config.steps
+        telemetry.counters.sources_fit += len(idx)
+        # each SVI step scores ~pixel_fraction of the active pixels
+        telemetry.counters.pixel_visits += int(
+            counts.sum() * svi_config.steps
+            * min(svi_config.pixel_fraction, 1.0))
+    telemetry.counters.report("svi infer")
     return _collect_results(st)
 
 
@@ -399,16 +455,14 @@ def infer_box(images, box=None, method="joint_vi", catalog=None,
               config=Config(), *, device="cuda", dtype=torch.float32,
               plain=False, **detect_kwargs):
     """Detect (or take) a catalog and infer all sources inside `box`
-    (ParallelRun.jl:652-673). method: joint_vi | single_vi | mcmc (svi
-    has no port yet). Runs on `device` in `dtype`; plain runs the kernels'
-    plain twins (the comparison route). Phase wall times (detect, infer)
-    are logged, as the reference's box-level @time reporting
-    (ParallelRun.jl:655-669)."""
-    if method == "svi":
-        raise NotImplementedError(
-            "method='svi' needs vi/stochastic.py (ROADMAP queue 1, Slice D)")
-    if method not in ("joint_vi", "single_vi", "mcmc"):
+    (ParallelRun.jl:652-673). method: joint_vi | single_vi | svi | mcmc.
+    Runs on `device` (raises for CUDA without a card) in `dtype`; plain
+    runs the kernels' plain twins (the comparison route; svi and mcmc have
+    none to choose). Phase wall times (detect, infer) are logged, as the
+    reference's box-level @time reporting (ParallelRun.jl:655-669)."""
+    if method not in ("joint_vi", "single_vi", "svi", "mcmc"):
         raise ValueError(f"unknown method {method!r}")
+    resolve(device)
     t0 = time.perf_counter()
     active_boxes = None
     if catalog is None:
@@ -438,6 +492,9 @@ def infer_box(images, box=None, method="joint_vi", catalog=None,
         out = one_node_single_infer(catalog, images, targets, config,
                                     active_boxes=active_boxes, plain=plain,
                                     **kw)
+    elif method == "svi":
+        out = one_node_svi_infer(catalog, images, targets, config,
+                                 active_boxes=active_boxes, **kw)
     else:
         from ..mcmc.infer import one_node_mcmc_infer
         out = one_node_mcmc_infer(catalog, images, targets, config, **kw)

@@ -14,10 +14,12 @@ import torch
 from ..models.image import CatalogEntry
 from ..models.patches import make_patches_batched, stack_patches
 from ..models.psf import get_psf_width
+from ..models.psf_fit import fit_patch_psfs
 from ..ops.newton import NewtonConfig
 from ..utils import log as Log
 from ..utils import telemetry
 from ..utils.config import Config
+from ..utils.device import resolve
 from ..vi.init import generic_init_source, init_sources
 from ..vi.optimize import fit_sources, fit_sources_compacted
 from .common import (MAX_PATCH_RADIUS, _beats, _elbo_values, _next_pow2,
@@ -151,12 +153,15 @@ class InferenceState:
 
     def __init__(self, catalog, images, config: Config,
                  target_sources=None, max_neighbors=8, active_boxes=None,
-                 *, device="cuda", dtype=torch.float32):
+                 *, device="cuda", dtype=torch.float32, plain=False):
         self.catalog = catalog
         self.images = images
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.dtype = dtype
+        # plain: the per-source PSF fits run K3's plain twin (the
+        # comparison route)
+        self.plain = plain
         S = len(catalog)
         self.targets = (list(range(S)) if target_sources is None
                         else list(target_sources))
@@ -192,6 +197,7 @@ class InferenceState:
         self._stacked = {}
         self._has_psfmap = any(img.meta and img.meta.get("psfmap") is not None
                                for img in images)
+        self._patch_psfs = None
 
         # catalog init everywhere, generic re-init for optimization targets
         # (DeterministicVI.jl:94-103)
@@ -217,13 +223,18 @@ class InferenceState:
 
     def patch_psf(self, s):
         """(B, K, 6) local PSF of source s, or None when no image has a
-        psfmap. The local PSFs of a spatially-varying psfmap
-        (model/imaged_sources.jl:97-107) need models/psf_fit.py, which has
-        no port yet: an image with a psfmap raises."""
-        if self._has_psfmap:
-            raise NotImplementedError(
-                "images with a psfmap need models/psf_fit.py, not ported yet")
-        return None
+        psfmap (model/imaged_sources.jl:97-107). All targets' PSFs are
+        fitted on first use, one batched launch per band on the state's
+        device (models/psf_fit.fit_patch_psfs)."""
+        if not self._has_psfmap:
+            return None
+        if self._patch_psfs is None:
+            positions = [self.catalog[t].pos for t in self.targets]
+            table = fit_patch_psfs(self.images, positions,
+                                   device=self.device, plain=self.plain)
+            self._patch_psfs = {t: table[i]
+                                for i, t in enumerate(self.targets)}
+        return self._patch_psfs.get(s)
 
     def build_patches(self, sources, tile=None):
         """Batch-build any missing patches for `sources`: one vectorized

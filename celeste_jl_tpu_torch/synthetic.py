@@ -55,13 +55,14 @@ def sample_galaxy(pos=(20.0, 20.0), r_flux=10.0, gal_frac_dev=0.3,
 
 
 def gen_images_fast(images, bodies, expectation=False, seed=42, radius=25,
-                    *, device):
+                    *, device, psfs=None):
     """Overwrite each image's pixels with a render of `bodies` plus its sky,
     Poisson-sampled (Synthetic.jl:30-47): per band, every source's unit-flux
     tile (P = 2 radius + 8) is rendered in f64 on `device` in one batched
     call per source type, the tiles are added host-side in `bodies` order,
     and numpy's default_rng(seed) draws the counts image by image, as the
-    JAX package does."""
+    JAX package does. psfs: optional (S, B, K, 6) PSF of each source in
+    each band (a spatially varying PSF); default each image's PSF."""
     rng = np.random.default_rng(seed)
     S = len(bodies)
     P = int(2 * radius + 8)
@@ -69,7 +70,8 @@ def gen_images_fast(images, bodies, expectation=False, seed=42, radius=25,
     if S:
         positions = np.array([np.asarray(ce.pos, np.float64) for ce in bodies])
         patches = make_patches_batched(images, positions,
-                                       np.full(S, float(radius)), P)
+                                       np.full(S, float(radius)), P,
+                                       psfs=psfs)
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
         field = lambda f: np.stack([getattr(p, f) for p in patches])
         psf, jac, wc, pc, off = (t(field(f)) for f in (

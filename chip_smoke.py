@@ -51,22 +51,45 @@ Phases, one line each; the first failure exits non-zero:
      sources on 1024 x 1024 px, seed 7) drawn on the card, then
      infer_box(joint_vi): detection (native labelling) and the host-driven
      joint schedule through K1-K3, f32, scored as run_field.py scores it;
-     then single_vi on the same images and detections. Prints detect and
-     infer seconds, sources/s, completeness, type accuracy, median r-flux
-     error, the fit launches by lane width and K1-K3's launches by width,
-     and times K1-K3 at the joint run's median fit-launch width. Bars:
+     then single_vi on the same images and detections (15 refreshes a
+     lane). Prints detect and infer seconds, sources/s, completeness,
+     type accuracy, median r-flux error, the fit launches by lane width
+     and K1-K3's launches by width, and times K1-K3 at the joint run's
+     median fit-launch width. Bars:
      every ELBO finite, no failure, K1-K3 each launched, native detection
      built, completeness >= 0.95 and (joint_vi) type accuracy >= 0.90;
  10. the joint field path through the kernels and through the plain twins
-     (infer_box(plain=True)), f64, 32 sources on 256 x 256 px (phase 9's
+     (infer_box(plain=True)), f64, 16 sources on 181 x 181 px (phase 9's
      density): 0 classification flips, no source's ELBO worse than 1e-4
-     relative; each departure printed.
+     relative; each departure printed;
+ 11. the survey app at full width: one SDSS field (2048 x 1489 px, 5
+     bands, 400 sources as run_field.py draws them, a psField PSF whose
+     width varies by +-13 % across the frame) written to FITS files with
+     the port's io/fits, then main(["sdss", <the frame less 20 px>,
+     "--config", yml, "--method", "joint_vi", "--detect-thresh", "6"]) on
+     the card in f64: FITS load with the field-center PSF fits, per-source
+     PSF fits (K3 at D = 12), detection, the joint schedule through K1-K3;
+     the .npz read back with load_results. Prints each stage's seconds,
+     sources/s, completeness, type accuracy and median r-flux error
+     (matched through the frame's TAN WCS), the fit launches by lane width
+     and K1-K3's by width, and K3 against its twin and timed at the PSF
+     fits' shape. Bars: every ELBO finite, 0 failures, completeness >=
+     0.95, type accuracy >= 0.90, K1-K3 launched and K3 by the PSF fits,
+     the r-band local PSF widths spanning >= 10 % across the targets,
+     every target of the box in the .npz;
+ 12. the app's routes, f64, on a 256 x 256 SDSS field of 32 sources:
+     fit_patch_psfs through K3 and through its twin (packed params within
+     1e-9 relative); infer_box(joint_vi) through the kernels and through
+     plain=True (0 flips, no ELBO worse than 1e-4 relative); main with
+     --method svi and single_vi (finite ELBOs, completeness >= 0.95) and
+     the median ELBO gap between them.
 Each phase prints its wall time. The line before the last is the kernels'
 JSON record (each kernel's launches counted on its path: phase 3 for K1-K3,
-6 for K4, 8 for K2a/K2b, and `field_launches` on phase 9's joint run; its
-bound from this run's shapes at the H100's published f32 and memory
-peaks); the last line is {"ok": true, "device": {...}}. Imports nothing of
-JAX.
+6 for K4, 8 for K2a/K2b, `field_launches` on phase 9's joint run and
+`app_launches` on phase 11's; its bound from this run's shapes at the
+H100's published f32 and memory peaks); the last line is {"ok": true,
+"device": {...}}. The app's files go to a directory under build/, removed
+at the end. Imports nothing of JAX.
 """
 
 import json
@@ -101,10 +124,16 @@ FIELD_KERNELS = ("refresh", "jacobi_sweep", "tr_subproblem")
 # the AIS program of benchmark/bench_mcmc.py (the production config)
 FULL_AIS = dict(num_temperatures=50, num_samples=10, num_samples_per_chain=25)
 ROUTE_AIS = dict(num_temperatures=20, num_samples=4, num_samples_per_chain=10)
+# phase 9's single_vi rerun on the joint run's detections, cut to 15
+# Hessian refreshes a lane (the joint warm sweeps' budget) to keep the
+# whole run near half its time limit
+SINGLE_RERUN_REFRESHES = 15
 
 # published peaks of one H100 SXM (NVIDIA's datasheet): float32
 # outside the tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
+# float64 outside the tensor cores, the same datasheet
+PEAK_F64_FLOPS = 34e12
 PEAK_BYTES = 3.35e12
 # the SFUs' exp2 rate: 16 a clock per SM (CUDA programming guide's
 # throughput table, compute capability 9.0), 132 SMs, 1.98 GHz boost
@@ -146,10 +175,12 @@ def timed_ms(fn, torch, reps=10, spin=False):
     return statistics.median(times)
 
 
-def bound(flops, nbytes):
-    """The least time the card could take for `flops` f32 operations and
-    `nbytes` of device memory traffic, and which of the two bounds it."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, f64=False):
+    """The least time the card could take for `flops` f32 (f64: float64)
+    operations and `nbytes` of device memory traffic, and which of the two
+    bounds it."""
+    peak = PEAK_F64_FLOPS if f64 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
@@ -1286,10 +1317,11 @@ def phase_field(device="cuda", n_sources=512, size=1024, seed=7, rec=None,
     port's infer_box (detection, then joint_vi's host-driven schedule),
     f32, scored as run_field.py scores it; then single_vi on the same
     images, detected catalog and footprints. With `rec`, K1-K3 are timed
-    at the joint run's median fit-launch width. config (default Config())
-    and single_newton (the single_vi run's NewtonConfig, default
-    NewtonConfig()) shorten the schedule for a CPU rehearsal, bars=False
-    skips the quality bars there. Returns the joint run's launches."""
+    at the joint run's median fit-launch width. single_newton: the
+    single_vi run's NewtonConfig (default SINGLE_RERUN_REFRESHES refreshes
+    a lane); config (default Config()) and single_newton shorten the
+    schedule for a CPU rehearsal, bars=False skips the quality bars
+    there. Returns the joint run's launches."""
     import torch
 
     from celeste_jl_tpu_torch.ops.newton import NewtonConfig
@@ -1309,7 +1341,8 @@ def phase_field(device="cuda", n_sources=512, size=1024, seed=7, rec=None,
     field_run(images, truth, "single_vi", device, torch.float32, "phase 9",
               bars, catalog=catalog,
               active_boxes=detection_active_boxes(catalog, det_boxes, images),
-              newton_config=single_newton or NewtonConfig())
+              newton_config=single_newton or NewtonConfig(
+                  max_iters=SINGLE_RERUN_REFRESHES))
     if rec is not None and widths:
         W = int(np.median(np.repeat(list(widths), list(widths.values()))))
         for name, r in fit_kernels_at(W, device).items():
@@ -1324,24 +1357,29 @@ def phase_field(device="cuda", n_sources=512, size=1024, seed=7, rec=None,
     return launches
 
 
-def refresh_kernel_at(n_sources, tile, device="cuda"):
-    """K1 at n_sources lanes (5 rows each) on tile x tile, f32, timed."""
+def refresh_kernel_at(n_sources, tile, device="cuda", dtype=None):
+    """K1 at n_sources lanes (5 rows each) on tile x tile, timed (f32
+    unless dtype says otherwise)."""
     import torch
 
     from celeste_jl_tpu_torch.ops import refresh
 
-    rows, ks, pdims = refresh_rows(n_sources, tile, device, torch.float32)
+    dtype = dtype or torch.float32
+    rows, ks, pdims = refresh_rows(n_sources, tile, device, dtype)
     time_fn = ((lambda fn, spin=False: timed_ms(fn, torch, spin=spin))
                if device == "cuda" else (lambda fn, spin=False: float("nan")))
     kernel = lambda: refresh.pixel_terms(*rows, ks=ks, pdims=pdims)
     G, C = rows[2].shape
     N = rows[6].shape[-1]
-    nbytes = 4 * (G * C * 42 + G * 6 + 5 * G * N + G * C * 15 + G * 72)
-    return dict(B=G, ms=time_fn(kernel), device_ms=time_fn(kernel, spin=True),
-                **bound(float(rows[7].sum()) * (60 * C + 400), nbytes))
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * (G * C * 42 + G * 6 + 5 * G * N + G * C * 15 + G * 72)
+    return dict(B=G, dtype=str(dtype)[6:], ms=time_fn(kernel),
+                device_ms=time_fn(kernel, spin=True),
+                **bound(float(rows[7].sum()) * (60 * C + 400), nbytes,
+                        f64=dtype == torch.float64))
 
 
-def phase_field_routes(device="cuda", n_sources=32, size=256, seed=7,
+def phase_field_routes(device="cuda", n_sources=16, size=181, seed=7,
                        config=None):
     """The field path through the kernels and through their plain twins
     (infer_box(plain=True)), f64, on run_field.py's density: phase 4's bar
@@ -1388,6 +1426,534 @@ def phase_field_routes(device="cuda", n_sources=32, size=256, seed=7,
               f"phase 10: a field kernel never launched: {rk_rec.launches()}")
     print(msg, flush=True)
     print("phase 10 ok", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 11-12: the survey app (main, SDSS files, per-source PSFs)
+# ---------------------------------------------------------------------------
+
+# tests/sdss_fixtures.make_sdss_field's photometry: gain 4 e-/DN and 0.005
+# nMgy/DN (800 e-/nMgy), sky 0.15 nMgy on a 6 x 4 grid, ~0.396 arcsec/px
+SDSS_GAIN, SDSS_CALIB, SDSS_SKY = 4.0, 0.005, 0.15
+SDSS_SKY_GRID = (6, 4)
+SDSS_CD = np.array([[1.1e-4, 0.0], [0.0, 1.1e-4]])
+SDSS_RCF = (3900, 6, 269)
+# the local PSF: (1 - w) narrow + w wide, w linear in axis 1 from 0 to 1
+# across the frame, each an elliptical two-Gaussian core and halo
+PSF_SIGMAS = (1.3, 1.7)
+PSF_STAMP = 31
+APP_MARGIN = 20.0
+PSF_WIDTH_SPAN_BAR = 0.10
+PSF_F64_TOL = 1e-9
+
+
+def app_psf(sigma):
+    """A packed (2, 6) elliptical PSF: 0.8 of a core of major sigma
+    `sigma`, 0.2 of a halo twice as wide, axis ratio 0.85, at 0.3 rad."""
+    from celeste_jl_tpu_torch.models.psf import make_psf
+
+    c, s = np.cos(0.3), np.sin(0.3)
+    R = np.array([[c, -s], [s, c]])
+    covs = [R @ np.diag([(k * sigma) ** 2, (0.85 * k * sigma) ** 2]) @ R.T
+            for k in (1.0, 2.0)]
+    return make_psf([0.8, 0.2], np.zeros((2, 2)), covs)
+
+
+def local_psf(x, H):
+    """The true local PSF at 1-based axis-1 position(s) x, packed (..., 4,
+    6): the narrow and the wide mixture weighted (1 - w, w)."""
+    narrow, wide = (app_psf(s) for s in PSF_SIGMAS)
+    w = (np.asarray(x, np.float64) - 1.0) / (H - 1.0)
+    out = np.broadcast_to(np.concatenate([narrow, wide]),
+                          np.shape(w) + (4, 6)).copy()
+    out[..., :2, 0] *= (1.0 - w)[..., None]
+    out[..., 2:, 0] *= w[..., None]
+    return out
+
+
+def write_sdss_field(basedir, H, W, n_sources, seed, device):
+    """Write one SDSS field in the 'celeste' directory layout with the
+    port's io/fits.write_fits: the files and conventions of
+    tests/sdss_fixtures.make_sdss_field (frame, fpM, psField, photoField,
+    photoObj, field_extents), at H x W px (axis1 x axis2), 5 bands.
+    n_sources from default_rng(seed) as benchmark/run_field.py draws them
+    (the first half stars, r-flux lognormal(3.0, 0.6); the rest galaxies,
+    lognormal(3.2, 0.5), radius lognormal(0.7, 0.3) px), uniform 20 px
+    inside the edges, drawn on `device` with each source's local PSF. The
+    psField holds two eigenimages (narrow, wide - narrow) whose weights
+    make the PSF width vary by +-13 % along axis 1. A few pixel boxes are
+    masked in the fpM files. Returns (truth, wcs)."""
+    from celeste_jl_tpu_torch.io.fits import write_fits
+    from celeste_jl_tpu_torch.io.sdss import BAND_CHARS, SDSSPSFMap
+    from celeste_jl_tpu_torch.io.wcs import TanWCS
+    from celeste_jl_tpu_torch.models.image import Image
+    from celeste_jl_tpu_torch.models.psf import render_psf
+    from celeste_jl_tpu_torch.synthetic import (gen_images_fast,
+                                                sample_galaxy, sample_star)
+
+    run, camcol, field = SDSS_RCF
+    wcs = TanWCS(crpix=[H / 2, W / 2], crval=[150.0, 1.0], cd=SDSS_CD)
+    rng = np.random.default_rng(seed)
+    pix = APP_MARGIN + rng.random((n_sources, 2)) * (
+        np.array([H, W]) - 2 * APP_MARGIN)
+    world = wcs.pix_to_world(pix)
+    truth = []
+    for i in range(n_sources):
+        if i < n_sources // 2:
+            truth.append(sample_star(pos=world[i], r_flux=float(
+                np.exp(rng.normal(3.0, 0.6)))))
+        else:
+            truth.append(sample_galaxy(
+                pos=world[i], r_flux=float(np.exp(rng.normal(3.2, 0.5))),
+                gal_radius_px=float(np.exp(rng.normal(0.7, 0.3))),
+                gal_axis_ratio=float(rng.uniform(0.25, 0.9)),
+                gal_angle=float(rng.uniform(0.0, np.pi))))
+
+    nelec = np.full(H, SDSS_GAIN / SDSS_CALIB)
+    images = [Image(pixels=np.zeros((H, W)), band=b, psf=app_psf(1.5),
+                    sky=SDSS_SKY, nelec_per_nmgy=nelec, wcs=wcs)
+              for b in range(5)]
+    psfs = np.repeat(local_psf(pix[:, 0], H)[:, None], 5, axis=1)
+    gen_images_fast(images, truth, seed=seed, device=device, psfs=psfs)
+
+    fdir = os.path.join(basedir, str(run), str(camcol), str(field))
+    os.makedirs(fdir, exist_ok=True)
+    tag = f"{run:06d}-{camcol}-{field:04d}"
+    nx, ny = SDSS_SKY_GRID
+    sky_small = np.full((nx, ny), SDSS_SKY / SDSS_CALIB)     # DN
+    wcs_cards = [("CTYPE1", "RA---TAN"), ("CTYPE2", "DEC--TAN"),
+                 ("CRPIX1", H / 2), ("CRPIX2", W / 2),
+                 ("CRVAL1", 150.0), ("CRVAL2", 1.0),
+                 ("CD1_1", SDSS_CD[0, 0]), ("CD1_2", SDSS_CD[0, 1]),
+                 ("CD2_1", SDSS_CD[1, 0]), ("CD2_2", SDSS_CD[1, 1])]
+    masks = {"r": [((5, 8), (5, 8)), ((H // 2, H // 2 + 3), (W // 3,
+                                                            W // 3 + 2))],
+             "g": [((H - 12, H - 9), (W - 12, W - 10))]}
+    planes = ["S_MASK_INTERP", "S_MASK_SATUR", "S_MASK_CR", "S_MASK_GHOST"
+              ] + [f"S_MASK_OTHER{k}" for k in range(1, 7)]
+    for b, band in enumerate(BAND_CHARS):
+        frame = (images[b].pixels / nelec[:, None] - SDSS_SKY
+                 ).astype(np.float32)
+        write_fits(os.path.join(fdir, f"frame-{band}-{tag}.fits"), [
+            (frame.T.copy(), wcs_cards),
+            (np.full(H, SDSS_CALIB, np.float32), None),
+            ({"ALLSKY": sky_small.T[None].astype(np.float32),
+              "XINTERP": np.linspace(0, nx - 1, H)[None].astype(np.float32),
+              "YINTERP": np.linspace(0, ny - 1, W)[None].astype(np.float32)},
+             None)])
+        boxes = masks.get(band, [])
+        i32 = lambda v: np.array(v, np.int32)
+        hdus = [(None, None)]
+        for plane in range(10):
+            sel = boxes if plane == 0 else []
+            hdus.append(({"cmin": i32([x0 for (x0, _), _ in sel]),
+                          "cmax": i32([x1 for (_, x1), _ in sel]),
+                          "rmin": i32([y0 for _, (y0, _) in sel]),
+                          "rmax": i32([y1 for _, (_, y1) in sel])}, None))
+        hdus.append(({"Value": np.arange(10, dtype=np.int32),
+                      "defName": np.array(["S_MASKTYPE"] * 10),
+                      "attributeName": np.array(planes)}, None))
+        write_fits(os.path.join(
+            fdir, f"fpM-{run:06d}-{band}{camcol}-{field:04d}.fit"), hdus)
+
+    narrow, wide = (render_psf(app_psf(s), PSF_STAMP).numpy()
+                    for s in PSF_SIGMAS)
+    cmat = np.zeros((2, 9))                 # 3 x 3 polynomial, column-major
+    cmat[0, 0] = 1.0                        # eigen 0 (narrow): weight 1
+    cmat[1, 1] = 1.0 / (SDSSPSFMap.RCS * (H - 1))   # eigen 1: (x - 1)/(H - 1)
+    rrows = np.stack([narrow.ravel(order="F"),
+                      (wide - narrow).ravel(order="F")])
+    write_fits(os.path.join(fdir, f"psField-{tag}.fit"), [(None, None)] + [
+        ({"nrow_b": np.array([3, 3], np.int32),
+          "ncol_b": np.array([3, 3], np.int32),
+          "rnrow": np.array([PSF_STAMP] * 2, np.int32),
+          "rncol": np.array([PSF_STAMP] * 2, np.int32),
+          "c": cmat.astype(np.float32),
+          "rrows": rrows.astype(np.float32)}, None) for _ in BAND_CHARS])
+    write_fits(os.path.join(basedir, str(run), str(camcol),
+                            f"photoField-{run:06d}-{camcol}.fits"),
+               [(None, None), ({"FIELD": np.array([field], np.int32),
+                                "GAIN": np.full((1, 5), SDSS_GAIN,
+                                                np.float32)}, None)])
+    n = len(truth)
+    rep5 = lambda v: np.repeat(np.asarray(v, np.float32)[:, None], 5, axis=1)
+    fluxes = np.array([ce.star_fluxes if ce.is_star else ce.gal_fluxes
+                       for ce in truth], np.float32)
+    write_fits(os.path.join(fdir, f"photoObj-{tag}.fits"), [(None, None), ({
+        "objid": np.array([f"obj-{i}" for i in range(n)]),
+        "ra": world[:, 0], "dec": world[:, 1],
+        "objc_flags": np.zeros(n, np.int32),
+        "objc_flags2": np.zeros(n, np.int32),
+        "nchild": np.zeros(n, np.int16),
+        "objc_type": np.array([6 if ce.is_star else 3 for ce in truth],
+                              np.int32),
+        "fracdev": rep5([ce.gal_frac_dev for ce in truth]),
+        "psfflux": fluxes, "cmodelflux": fluxes, "devflux": fluxes,
+        "expflux": fluxes,
+        "phi_dev_deg": rep5([np.degrees(ce.gal_angle) for ce in truth]),
+        "phi_exp_deg": rep5([np.degrees(ce.gal_angle) for ce in truth]),
+        "phi_offset": rep5(np.zeros(n)),
+        "theta_dev": rep5([ce.gal_radius_px * 0.396 for ce in truth]),
+        "theta_exp": rep5([ce.gal_radius_px * 0.396 for ce in truth]),
+        "ab_exp": rep5([ce.gal_axis_ratio for ce in truth]),
+        "ab_dev": rep5([ce.gal_axis_ratio for ce in truth])}, None)])
+    corners = wcs.pix_to_world(np.array([[1, 1], [H, 1], [1, W], [H, W]],
+                                        np.float64))
+    write_fits(os.path.join(basedir, "field_extents.fits"), [
+        (None, None), ({"run": np.array([run], np.int16),
+                        "camcol": np.array([camcol], np.int16),
+                        "field": np.array([field], np.int16),
+                        "ramin": corners[:, 0].min(keepdims=True),
+                        "ramax": corners[:, 0].max(keepdims=True),
+                        "decmin": corners[:, 1].min(keepdims=True),
+                        "decmax": corners[:, 1].max(keepdims=True)}, None)])
+    return truth, wcs
+
+
+def app_box(wcs, H, W):
+    """The frame less a 20 px margin, as (ramin, ramax, decmin, decmax)."""
+    m = APP_MARGIN
+    c = wcs.pix_to_world(np.array([[m, m], [H - m, m], [m, W - m],
+                                   [H - m, W - m]], np.float64))
+    return (c[:, 0].min(), c[:, 0].max(), c[:, 1].min(), c[:, 1].max())
+
+
+def app_score(results, truth, wcs):
+    """field_score through the frame's TAN WCS: results and truth matched
+    within 2 px in pixel coordinates."""
+    import dataclasses
+
+    return field_score(
+        [dataclasses.replace(r, init_pos=wcs.world_to_pix(r.init_pos))
+         for r in results],
+        [dataclasses.replace(t, pos=wcs.world_to_pix(t.pos)) for t in truth])
+
+
+def app_config(dirname, basedir, extra=""):
+    """A celeste.yml naming the SDSS dataset at basedir; returns its path."""
+    path = os.path.join(dirname, "celeste.yml")
+    with open(path, "w") as f:
+        f.write(f"# the survey app's config (chip_smoke.py)\n{extra}"
+                f"datasets:\n  sdss:\n    basedir: '{basedir}'\n"
+                f"    dirlayout: celeste\n")
+    return path
+
+
+def app_run(argv, device, label):
+    """One main(argv) run, instrumented: the FITS load, the per-source PSF
+    fits (seconds, lanes, their K3 launches and the fitted table), the
+    detection and the inference are timed, K1-K3's launches counted by
+    width (their counters set to 0 at the start). Returns a dict."""
+    import torch
+
+    from celeste_jl_tpu_torch import main as app
+    from celeste_jl_tpu_torch.io import sdss
+    from celeste_jl_tpu_torch.ops import tr
+    from celeste_jl_tpu_torch.parallel import run, state
+    from celeste_jl_tpu_torch.utils import telemetry
+
+    out = dict(psf_s=0.0, psf_lanes=[], psf_k3=0, psf_tables=[])
+    orig = dict(load=sdss.SDSSDataSet.load_images,
+                psf=state.fit_patch_psfs, detect=run.detect_sources,
+                infer=app.infer_box)
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            res = fn(*a, **k)
+            out[key] = out.get(key, 0.0) + time.perf_counter() - t
+            if key == "detect_s":
+                out["catalog"] = res[0]
+            return res
+        return wrapper
+
+    def psf_fits(images, positions, **k):
+        t, n3 = time.perf_counter(), tr.tr_subproblem.launches
+        table = orig["psf"](images, positions, **k)
+        out["psf_s"] += time.perf_counter() - t
+        out["psf_k3"] += tr.tr_subproblem.launches - n3
+        out["psf_lanes"].append(len(positions))
+        out["psf_tables"].append(table)
+        return table
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    sdss.SDSSDataSet.load_images = timed("load_s", orig["load"])
+    state.fit_patch_psfs = psf_fits
+    run.detect_sources = timed("detect_s", orig["detect"])
+    app.infer_box = timed("infer_box_s", orig["infer"])
+    try:
+        with KernelWidths() as kw_rec:
+            t0 = time.perf_counter()
+            rc = app.main(argv, device=device)
+            out["wall_s"] = time.perf_counter() - t0
+    finally:
+        sdss.SDSSDataSet.load_images = orig["load"]
+        state.fit_patch_psfs = orig["psf"]
+        run.detect_sources = orig["detect"]
+        app.infer_box = orig["infer"]
+    check(rc == 0, f"{label}: main returned {rc}")
+    out["infer_s"] = out["infer_box_s"] - out.get("detect_s", 0.0)
+    out["launches"] = kw_rec.launches()
+    out["kernels"] = kw_rec.summary()
+    out["counters"] = telemetry.counters
+    return out
+
+
+def app_results(outdir):
+    """The run's one .npz, read back with the port's load_results."""
+    import glob
+
+    from celeste_jl_tpu_torch.main import load_results
+
+    files = glob.glob(os.path.join(outdir, "celeste-*.npz"))
+    check(len(files) == 1, f"expected one .npz in {outdir}, found {files}")
+    return load_results(files[0])
+
+
+def k3_at_psf_shape(S, device):
+    """K3 against its twin at the PSF fits' shape (S lanes, D = 12, f64,
+    48 bisections), timed with its f64 bound (tr_bound's count: ~5 flops
+    per coordinate per bisection; gq, w, delta in, p and pred out)."""
+    import torch
+
+    from celeste_jl_tpu_torch.ops import tr
+
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+    gq, w, delta = map(t, tr_cases(np.random.default_rng(12), S, D=12))
+    p1, r1 = tr.tr_subproblem(gq, w, delta, 48)
+    p2, r2 = tr.tr_subproblem_plain(gq, w, delta, 48)
+    err = max(_rel_err(p1, p2), _rel_err(r1[:, None], r2[:, None]))
+    abs_err = max(float((p1 - p2).abs().max()), float((r1 - r2).abs().max()))
+    check(err < F64_TOL, f"K3 at the PSF fits' shape B={S} D=12 f64: rel "
+          f"err {err:.3g} (tol {F64_TOL:g})")
+    if device == "cuda":
+        kernel = lambda: tr.tr_subproblem(gq, w, delta, 48)
+        ms, device_ms = (timed_ms(kernel, torch),
+                         timed_ms(kernel, torch, spin=True))
+        plain_ms = timed_ms(lambda: tr.tr_subproblem_plain(gq, w, delta, 48),
+                            torch)
+    else:
+        ms = device_ms = plain_ms = float("nan")
+    return dict(B=S, D=12, dtype="float64", max_abs_err=abs_err, ms=ms,
+                device_ms=device_ms, plain_ms=plain_ms,
+                **bound(S * 48 * 12 * 5, 8 * S * (3 * 12 + 2), f64=True))
+
+
+def phase_app(device="cuda", H=2048, W=1489, n_sources=400, seed=11,
+              method="joint_vi", rec=None, bars=True):
+    """The survey app at full width: one SDSS field (H x W px, 5 bands,
+    n_sources, a spatially varying psField PSF) written to FITS files, then
+    main(["sdss", <the frame less a 20 px margin>, "--config", yml,
+    "--method", method, "--detect-thresh", "6", "--outdir", ...]) on
+    `device` (float64, as the CLI runs), and the .npz read back with
+    load_results. Prints the load, PSF-fit, detect and infer seconds,
+    sources/s, the score (through the frame's TAN WCS), the fit launches
+    by lane width and K1-K3's launches by width; with `rec`, K3 is checked
+    against its twin and timed at the PSF fits' shape, and K1 timed in
+    f64 at the median fit-launch width. Bars (bars=True):
+    every ELBO finite, 0 failures, completeness >= 0.95 and type accuracy
+    >= 0.90, K1-K3 each launched and K3 by the PSF fits, the fitted r-band
+    local PSF widths spanning >= 10 % across the targets, and every target
+    of the box in the .npz. Returns the run's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from celeste_jl_tpu_torch.io.dataset import BoundingBox
+    from celeste_jl_tpu_torch.models.psf import get_psf_width
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="app-", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        base = os.path.join(tmp, "sdss")
+        truth, wcs = write_sdss_field(base, H, W, n_sources, seed, device)
+        print(f"phase 11: SDSS field {H}x{W} px, 5 bands, {n_sources} "
+              f"sources, seed {seed}, written in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        box = app_box(wcs, H, W)
+        outdir = os.path.join(tmp, "out")
+        argv = (["sdss"] + [repr(float(v)) for v in box]
+                + ["--config", app_config(tmp, base), "--method", method,
+                   "--detect-thresh", "6", "--outdir", outdir])
+        r = app_run(argv, device, "phase 11")
+        results = app_results(outdir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    c = r["counters"]
+    targets = [ce for ce in r.get("catalog", [])
+               if BoundingBox(*box).contains(*ce.pos)]
+    n_match, acc, errs = app_score(results, truth, wcs)
+    completeness = n_match / len(truth)
+    med = float(np.median(errs)) if errs else float("nan")
+    elbos = np.array([x.elbo for x in results])
+    widths = np.array([get_psf_width(row[2]) for table in r["psf_tables"]
+                       for row in table])
+    span = (float((widths.max() - widths.min()) / np.median(widths))
+            if widths.size else 0.0)
+    fit_widths = dict(sorted(c.lane_widths.items()))
+    print(f"phase 11 {method}: FITS load {r.get('load_s', 0.0):.3f} s (the "
+          f"field-center PSF fits included), per-source PSF fits "
+          f"{r['psf_s']:.3f} s, {r['psf_lanes']} lanes a band, K3 "
+          f"{r['psf_k3']} launches; detect {r.get('detect_s', 0.0):.3f} s, "
+          f"infer {r['infer_s']:.3f} s (PSF fits included), "
+          f"{len(results) / r['infer_s']:.3f} sources/s; main "
+          f"{r['wall_s']:.3f} s; detected {len(r.get('catalog', []))}, "
+          f"{len(targets)} in the box, {len(results)} in the .npz; matched "
+          f"{n_match}, completeness {completeness:.4f}; type accuracy "
+          f"{acc:.4f}; median r-flux rel err {med:.4f}; r-band local PSF "
+          f"width {widths.min() if widths.size else 0:.4f}-"
+          f"{widths.max() if widths.size else 0:.4f} px (span {span:.4f}); "
+          f"{c.launches} fit launches by lane width {fit_widths}, lane fill "
+          f"{c.lane_fill():.4f}; failures {c.failures}", flush=True)
+    print(f"phase 11 {method} kernels: {r['kernels']}", flush=True)
+    if bars:
+        ok = (bool(np.all(np.isfinite(elbos))) and c.failures == 0
+              and completeness >= FIELD_COMPLETENESS_BAR
+              and acc >= FIELD_TYPE_BAR and span >= PSF_WIDTH_SPAN_BAR
+              and len(results) == len(targets) > 0)
+        if device == "cuda":
+            ok = ok and r["psf_k3"] > 0 and all(
+                r["launches"][k] > 0 for k in FIELD_KERNELS)
+        check(ok, f"phase 11: finite ELBOs "
+              f"{bool(np.all(np.isfinite(elbos)))}, failures {c.failures}, "
+              f"completeness {completeness:.4f} (bar "
+              f"{FIELD_COMPLETENESS_BAR}), type accuracy {acc:.4f} (bar "
+              f"{FIELD_TYPE_BAR}), PSF width span {span:.4f} (bar "
+              f"{PSF_WIDTH_SPAN_BAR}), .npz {len(results)} of {len(targets)} "
+              f"targets, launches {r['launches']}, K3 by the PSF fits "
+              f"{r['psf_k3']}")
+    if rec is not None and fit_widths:
+        # K1 in f64, the CLI's type, at the median fit-launch width
+        W = int(np.median(np.repeat(list(fit_widths),
+                                    list(fit_widths.values()))))
+        k1 = refresh_kernel_at(W, 32, device, torch.float64)
+        rec.setdefault("refresh", {})["app_f64"] = k1
+        print(f"phase 11: refresh f64 at the median fit-launch width W={W} "
+              f"(G={k1['B']}, 32x32): {k1['ms']:.4f} ms "
+              f"({k1['device_ms']:.4f} on the card alone), bound "
+              f"{k1['bound_ms']:.3g} ms ({k1['bound_by']})", flush=True)
+    if rec is not None and r["psf_lanes"]:
+        k3 = k3_at_psf_shape(max(r["psf_lanes"]), device)
+        rec["tr_subproblem"]["psf_fit"] = k3
+        print(f"phase 11: tr_subproblem at the PSF fits' shape B={k3['B']} "
+              f"D=12 f64: max abs err {k3['max_abs_err']:.3g}; "
+              f"{k3['ms']:.4f} ms ({k3['device_ms']:.4f} on the card alone), "
+              f"plain {k3['plain_ms']:.4f} ms, bound {k3['bound_ms']:.3g} ms "
+              f"({k3['bound_by']})", flush=True)
+    print("phase 11 ok", flush=True)
+    return r["launches"]
+
+
+def phase_app_routes(device="cuda", size=256, n_sources=32, seed=7,
+                     config=None):
+    """The app's routes on a small SDSS field (size x size px, n_sources,
+    phase 10's density), f64: fit_patch_psfs through K3 and through its
+    twin (packed params within 1e-9 relative); infer_box(joint_vi) on the
+    loaded images through the kernels and through plain=True (0 flips, no
+    ELBO worse than 1e-4 relative); then main with --method svi and
+    single_vi (every ELBO finite, completeness >= 0.95), and the median
+    ELBO gap between them. config: infer_box's Config (default Config())
+    for a CPU rehearsal."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from celeste_jl_tpu_torch.io.sdss import RunCamcolField, SDSSDataSet
+    from celeste_jl_tpu_torch.models.params import ids
+    from celeste_jl_tpu_torch.models.psf_fit import fit_patch_psfs
+    from celeste_jl_tpu_torch.parallel.run import infer_box
+    from celeste_jl_tpu_torch.utils.config import Config
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="app-", dir=os.path.join(ROOT, "build"))
+    try:
+        base = os.path.join(tmp, "sdss")
+        truth, wcs = write_sdss_field(base, size, size, n_sources, seed,
+                                      device)
+        images = SDSSDataSet(base, device=device).load_field_images(
+            RunCamcolField(*SDSS_RCF))
+        pos = [t.pos for t in truth]
+        t0 = time.perf_counter()
+        pk = fit_patch_psfs(images, pos, device=device)
+        t1 = time.perf_counter()
+        pp = fit_patch_psfs(images, pos, device=device, plain=True)
+        t2 = time.perf_counter()
+        S = len(pos)
+        err = _rel_err(torch.as_tensor(pk).reshape(S, -1),
+                       torch.as_tensor(pp).reshape(S, -1))
+        msg = (f"phase 12: fit_patch_psfs {S} sources x 5 bands f64, K3 vs "
+               f"twin: packed rel err {err:.3g} (tol {PSF_F64_TOL:g}); "
+               f"kernel {t1 - t0:.3f} s, plain {t2 - t1:.3f} s")
+        check(np.all(np.isfinite(pk)) and err < PSF_F64_TOL, msg)
+        print(msg, flush=True)
+
+        kw = dict(method="joint_vi", config=config or Config(),
+                  device=device, dtype=torch.float64, thresh=6.0,
+                  boxsize=(size, size))
+        t0 = time.perf_counter()
+        with KernelWidths() as rk_rec:
+            rk = infer_box(images, **kw)
+        t1 = time.perf_counter()
+        rp = infer_box(images, plain=True, **kw)
+        t2 = time.perf_counter()
+        check(len(rk) == len(rp) > 0 and all(
+            np.array_equal(a.init_pos, b.init_pos) for a, b in zip(rk, rp)),
+            "phase 12: the two routes detected different catalogs")
+        star_k = np.array([r.vs[ids.is_star[0]] > 0.5 for r in rk])
+        star_p = np.array([r.vs[ids.is_star[0]] > 0.5 for r in rp])
+        ek = np.array([r.elbo for r in rk])
+        ep = np.array([r.elbo for r in rp])
+        rel = (ek - ep) / np.abs(ep)
+        flips = int(np.sum(star_k != star_p))
+        msg = (f"phase 12: infer_box(joint_vi) {len(rk)} sources f64 on the "
+               f"SDSS field, kernels vs plain twins: {flips} flips; ELBO rel "
+               f"worst {rel.min():.3g}, best {rel.max():.3g}; kernels "
+               f"{t1 - t0:.3f} s, plain {t2 - t1:.3f} s; "
+               f"{rk_rec.summary()}; bar: 0 flips, worst > "
+               f"-{SLICE_ELBO_TOL:g}")
+        check(flips == 0 and bool(np.all(np.isfinite(ek)))
+              and bool(np.all(rel > -SLICE_ELBO_TOL)), msg)
+        if device == "cuda":
+            check(all(n > 0 for n in rk_rec.launches().values()),
+                  f"phase 12: a field kernel never launched: "
+                  f"{rk_rec.launches()}")
+        print(msg, flush=True)
+
+        box = app_box(wcs, size, size)
+        runs = {}
+        for method in ("svi", "single_vi"):
+            outdir = os.path.join(tmp, method)
+            argv = (["sdss"] + [repr(float(v)) for v in box]
+                    + ["--config", app_config(tmp, base), "--method",
+                       method, "--detect-thresh", "6", "--outdir", outdir])
+            r = app_run(argv, device, f"phase 12 {method}")
+            res = app_results(outdir)
+            n_match, acc, _ = app_score(res, truth, wcs)
+            completeness = n_match / len(truth)
+            elbos = np.array([x.elbo for x in res])
+            msg = (f"phase 12 main --method {method}: {len(res)} sources, "
+                   f"main {r['wall_s']:.3f} s (infer {r['infer_s']:.3f} s); "
+                   f"matched {n_match}, completeness {completeness:.4f}; "
+                   f"type accuracy "
+                   f"{acc:.4f}; finite ELBOs "
+                   f"{bool(np.all(np.isfinite(elbos)))}")
+            check(len(res) > 0 and bool(np.all(np.isfinite(elbos)))
+                  and completeness >= FIELD_COMPLETENESS_BAR,
+                  msg + f" (bar {FIELD_COMPLETENESS_BAR})")
+            print(msg, flush=True)
+            runs[method] = {tuple(x.init_pos): x.elbo for x in res}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    common = set(runs["svi"]) & set(runs["single_vi"])
+    gap = [runs["single_vi"][k] - runs["svi"][k] for k in common]
+    print(f"phase 12: svi vs single_vi on {len(common)} sources: median "
+          f"ELBO gap (single_vi - svi) {float(np.median(gap)):.4f} nats",
+          flush=True)
+    print("phase 12 ok", flush=True)
 
 
 SOURCES = {
@@ -1441,13 +2007,20 @@ def main():
         t0 = time.perf_counter()
         phase_field_routes()
         _phase_clock(10, t0)
+        t0 = time.perf_counter()
+        app = phase_app(rec=rec)
+        _phase_clock(11, t0)
+        t0 = time.perf_counter()
+        phase_app_routes()
+        _phase_clock(12, t0)
     except PhaseError as e:
         print(f"FAILED: {e}", flush=True)
         return 1
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k][0],
              replaces=SOURCES[k][1], launches=launches[k],
-             field_launches=field.get(k, 0), **rec[k])
+             field_launches=field.get(k, 0), app_launches=app.get(k, 0),
+             **rec[k])
         for k in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""The PyTorch port imports neither JAX nor the JAX package, its smoke
-script refuses to run without a CUDA device or outside a checkout, and the
-argument types it gives ctypes match its kernels' C entry points."""
+"""The PyTorch port imports neither JAX nor the JAX package (nor PyYAML),
+its smoke script refuses to run without a CUDA device or outside a
+checkout, its phases run at tiny sizes on the CPU twins, and the argument
+types it gives ctypes match its kernels' C entry points."""
 
 import os
 import shutil
@@ -18,13 +19,28 @@ torch.set_num_threads(1)
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import celeste_jl_tpu_torch as pkg
-mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
+# __main__ runs the CLI when imported; _RUN_MAIN runs it
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')
+        if m.name != pkg.__name__ + '.__main__']
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'celeste_jl_tpu'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'celeste_jl_tpu', 'yaml'))
 print(len(mods), bad, mods)
+assert not bad, bad
+"""
+
+_RUN_MAIN = """
+import runpy, sys
+sys.argv = ['celeste_jl_tpu_torch', '--help']
+try:
+    runpy.run_module('celeste_jl_tpu_torch', run_name='__main__')
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'celeste_jl_tpu', 'yaml'))
+print(bad)
 assert not bad, bad
 """
 
@@ -37,18 +53,24 @@ def _run(args, cwd):
 
 
 def test_port_modules_import_without_jax():
-    """No module named jax, jax.*, celeste_jl_tpu or celeste_jl_tpu.* is
-    loaded after every port module and chip_smoke are imported."""
+    """No module named jax, jax.*, celeste_jl_tpu, celeste_jl_tpu.* or yaml
+    is loaded after every port module and chip_smoke are imported, nor
+    after `python -m celeste_jl_tpu_torch --help` has run."""
     # a subprocess: tests/conftest.py has imported jax into this one
     proc = _run(["-c", _IMPORT_ALL], ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 36, proc.stdout
+    assert n_modules >= 45, proc.stdout
     for m in ("utils.log", "utils.telemetry", "utils.coordinates",
-              "io.dataset", "detection._native", "detection.background",
-              "detection.extract", "detection.detect", "parallel.partition",
-              "parallel.packing", "parallel.run"):
-        assert f"celeste_jl_tpu_torch.{m}" in proc.stdout, m
+              "utils.device", "io.dataset", "io.fits", "io.wcs", "io.sdss",
+              "io.decals", "detection._native", "detection.background",
+              "detection.extract", "detection.detect", "models.psf_fit",
+              "parallel.partition", "parallel.packing", "parallel.run",
+              "vi.stochastic", "main"):
+        assert f"celeste_jl_tpu_torch.{m}'" in proc.stdout, m
+    proc = _run(["-c", _RUN_MAIN], ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "--method" in proc.stdout and "svi" in proc.stdout
 
 
 def test_chip_smoke_fails_without_cuda_or_checkout(tmp_path):
@@ -129,3 +151,23 @@ def test_entry_points_match_the_c_signatures():
             declared[name] = [ctypes.c_void_p if "*" in p else ctypes.c_int
                               for p in params.split(",")]
     assert declared == _build.ENTRY_POINTS
+
+
+def test_chip_smoke_app_phases_run_on_cpu_twins():
+    """Phases 11-12 of chip_smoke.py (the survey app) on a 96 x 64 and a
+    64 x 64 SDSS field of a few sources on the CPU, the schedules cut
+    short: the field writer, main, the scorer through the TAN WCS and the
+    route comparisons, not the kernels."""
+    import chip_smoke as cs
+    from celeste_jl_tpu_torch.utils.config import Config
+
+    rec = {"tr_subproblem": {}}
+    launches = cs.phase_app(device="cpu", H=96, W=64, n_sources=4,
+                            method="single_vi", rec=rec, bars=False)
+    assert launches == {k: 0 for k in cs.FIELD_KERNELS}
+    k3 = rec["tr_subproblem"]["psf_fit"]
+    assert (k3["B"], k3["D"]) == (4, 12) and k3["max_abs_err"] == 0.0
+    assert k3["bound_ms"] > 0 and k3["bound_by"] in ("bytes", "operations")
+    tiny = Config(num_joint_vi_iters=1, joint_step_refreshes=2,
+                  polish_refreshes=2, polish_sweeps=1, probe_refreshes=2)
+    cs.phase_app_routes(device="cpu", size=64, n_sources=3, config=tiny)

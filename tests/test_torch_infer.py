@@ -141,9 +141,13 @@ def test_active_boxes_and_patches_match_jax(scene):
                                          active_boxes=boxes)):
             for name, a, b in zip(w._fields, g, w):
                 np.testing.assert_array_equal(a, b, err_msg=name)
-    with pytest.raises(NotImplementedError):
-        make_patches_batched(p_images, positions, radii, 32,
-                             psfs=np.zeros((len(catalog), 5, 2, 6)))
+    # per-source PSFs (models/psf_fit.fit_patch_psfs's table)
+    psfs = np.random.default_rng(4).uniform(0.5, 2.0, (len(catalog), 5, 2, 6))
+    for g, w in zip(make_patches_batched(p_images, positions, radii, 32,
+                                         psfs=psfs),
+                    jax_make_patches(images, positions, radii, 32,
+                                     psfs=psfs)):
+        np.testing.assert_array_equal(g.psf, w.psf)
 
 
 def _states(scene, active=False):
@@ -193,20 +197,46 @@ def test_inference_state_matches_jax(scene, active, tmp_path):
 
 
 def test_state_defaults_to_the_card_and_refuses_a_psfmap(scene):
+    """The state runs on the card unless asked for the CPU (and refuses to
+    start without one); with a psfmap it builds per-source PSFs: the JAX
+    state's local PSFs (fit_patch_psfs for every target on first use) in
+    the patches, within 1e-6 relative (the name is from when a psfmap was
+    refused)."""
+    import inspect
+
+    from celeste_jl_tpu.io.sdss import SDSSPSFMap as JaxPSFMap
+    from celeste_jl_tpu_torch.io.sdss import SDSSPSFMap
+    from test_torch_psf_fit import _varying_psfmap
+
     images, truth, p_images, p_truth = scene
-    st = InferenceState(p_truth, p_images, CFG)
-    assert st.device == torch.device("cuda") and st.dtype == torch.float32
-    if not torch.cuda.is_available():
-        # no quiet move to the CPU: staging a launch needs the card
-        with pytest.raises((RuntimeError, AssertionError)):
-            st.stacked_patches([0])
-    p_images[0].meta = {"psfmap": object()}
+    params = inspect.signature(InferenceState).parameters
+    assert params["device"].default == "cuda"
+    assert params["dtype"].default == torch.float32
+    if torch.cuda.is_available():
+        assert InferenceState(p_truth, p_images, CFG).device.type == "cuda"
+    else:
+        # no quiet move to the CPU
+        with pytest.raises(RuntimeError, match="cuda"):
+            InferenceState(p_truth, p_images, CFG)
     try:
-        st = InferenceState(p_truth, p_images, CFG, **F64)
-        with pytest.raises(NotImplementedError):
-            st.build_patches([0])
+        for img, p_img in zip(images[:4], p_images[:4]):
+            img.meta = {"psfmap": _varying_psfmap(JaxPSFMap)}
+            p_img.meta = {"psfmap": _varying_psfmap(SDSSPSFMap)}
+        js = JaxState(truth, images, JCFG, target_sources=[0, 2])
+        st = InferenceState(p_truth, p_images, CFG, target_sources=[0, 2],
+                            **F64)
+        for s in (0, 2):
+            want = js.patch_psf(s)
+            got = st.patch_psf(s)
+            assert got.shape == want.shape == (5, 2, 6)
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=1e-6 * np.abs(want).max())
+            np.testing.assert_array_equal(got[4], p_images[4].psf)
+            np.testing.assert_array_equal(st.patch(s).psf, got)
+        assert st.patch_psf(1) is None and js.patch_psf(1) is None
     finally:
-        p_images[0].meta = {}
+        for img in images + p_images:
+            img.meta = {}
 
 
 def test_moment_grids_background_and_elbos_match_jax(scene):
@@ -330,19 +360,28 @@ def test_cyclades_schedule_resumes_from_its_checkpoint(scene, tmp_path):
 
 
 def test_infer_box_rejects_unported_methods(scene, monkeypatch):
+    """An unknown method raises; svi and mcmc reach their schedules on the
+    caller's device (the name is from when svi had no port)."""
     _, _, p_images, p_truth = scene
-    with pytest.raises(NotImplementedError, match="Slice D"):
-        infer_box(p_images, method="svi", catalog=p_truth, **F64)
     with pytest.raises(ValueError):
         infer_box(p_images, method="bogus", catalog=p_truth, **F64)
     from celeste_jl_tpu_torch.mcmc import infer as mcmc_infer
+    from celeste_jl_tpu_torch.parallel import run
 
     calls = []
     monkeypatch.setattr(mcmc_infer, "one_node_mcmc_infer",
                         lambda *a, **kw: calls.append(kw) or ["ok"])
+    monkeypatch.setattr(run, "one_node_svi_infer",
+                        lambda *a, **kw: calls.append(kw) or ["svi"])
     assert infer_box(p_images, method="mcmc", catalog=p_truth,
                      **F64) == ["ok"]
-    assert calls == [dict(F64)]
+    assert infer_box(p_images, method="svi", catalog=p_truth,
+                     **F64) == ["svi"]
+    assert calls[0] == dict(F64)
+    assert {k: calls[1][k] for k in F64} == F64
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            infer_box(p_images, method="joint_vi", catalog=p_truth)
 
 
 @pytest.fixture(scope="module")

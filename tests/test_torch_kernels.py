@@ -617,3 +617,29 @@ def test_fast_division_exhaustive(cuda):
     torch.cuda.synchronize()
     assert int(out[0]) == 0, (f"{int(out[0])} pairs differ, e.g. a bits "
                               f"{int(out[1]):#x}, b bits {int(out[2]):#x}")
+
+
+def test_psf_fits_run_k3_not_its_twin(cuda, monkeypatch):
+    """The PSF fits (D = 12) on the card step through K3 and never its
+    plain twin; the fitted mixture matches the twin route's."""
+    from celeste_jl_tpu_torch.models import psf_fit
+    from celeste_jl_tpu_torch.models.psf import make_psf, render_psf
+    from celeste_jl_tpu_torch.ops import newton
+
+    psf = make_psf([0.6, 0.4], [[0.3, -0.2], [0.0, 0.1]],
+                   [np.array([[2.0, 0.3], [0.3, 1.5]]),
+                    np.array([[6.0, -0.5], [-0.5, 7.0]])])
+    stamps = np.stack([render_psf(psf, 25).numpy(),
+                       render_psf(psf, 25).numpy() * 0.9])
+    plain, _ = psf_fit.fit_psfs_batched(stamps, device=cuda, plain=True)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain TR twin ran on the card's path")
+
+    monkeypatch.setattr(newton, "tr_subproblem_plain", refuse)
+    before = tr.tr_subproblem.launches
+    got, errs = psf_fit.fit_psfs_batched(stamps, device=cuda)
+    assert tr.tr_subproblem.launches > before
+    assert np.all(np.isfinite(errs))
+    np.testing.assert_allclose(got, plain, rtol=0,
+                               atol=1e-9 * np.abs(plain).max())
