@@ -10,9 +10,13 @@ models/image.py, vi/init.py) are its own copies.
 Slices ported so far: the batched source fit that bench.py times,
 `vi.optimize.fit_sources_compacted` with the pjacobi trust-region solver;
 MCMC/AIS, `mcmc.infer.run_ais_batched`; one sky box,
-`parallel.run.infer_box`; and the survey app, `python -m
-celeste_jl_tpu_torch` (main.py: SDSS FITS files in, PSF fits, inference,
-a saved catalog out), through hand-written CUDA kernels (csrc/):
+`parallel.run.infer_box`, its joint schedule fused by default
+(parallel/fused.py); several boxes as one schedule,
+`parallel.run.joint_infer_fields` (`python -m
+celeste_jl_tpu_torch.benchmark.multifield`); and the survey app,
+`python -m celeste_jl_tpu_torch` (main.py: SDSS FITS files in, PSF fits,
+inference, a saved catalog out), through hand-written CUDA kernels
+(csrc/):
   refresh.cu        the analytic-Hessian refresh pixel pass (ops/refresh.py)
   jacobi_sweep.cu   one parallel-Jacobi eigensolver sweep (ops/eigh.py)
   jacobi_sweep_split.cu  the same sweep in two launches, A rounds with a

@@ -52,15 +52,19 @@ def _next_pow2(n):
     return 1 << max(0, (n - 1).bit_length())
 
 
-def _render_neighbor_bg(nb_vps, nb_mask, patches):
+def _render_neighbor_bg(nb_vps, nb_mask, patches, n_slots=None):
     """Sum of the neighbors' E[G] and Var[G] images on each lane's patch.
 
     nb_vps (W, NB, 44); nb_mask (W, NB), 1 for a real neighbor; patches a
     SkyPatch with leading W. Returns (bg_E_G, bg_var_G), each (W, B, P, P).
     Slot k of every lane renders in one batched call; slots past the most
-    neighbors any lane has are all masked and skipped."""
+    neighbors any lane has are all masked and skipped. n_slots: that
+    count, when the caller knows it on the host (otherwise it is read from
+    nb_mask, one device read)."""
     with torch.no_grad():
-        n_slots = int((nb_mask > 0).sum(dim=1).max()) if nb_mask.numel() else 0
+        if n_slots is None:
+            n_slots = (int((nb_mask > 0).sum(dim=1).max())
+                       if nb_mask.numel() else 0)
         bg_E = torch.zeros_like(patches.sky)
         bg_V = torch.zeros_like(patches.sky)
         for k in range(n_slots):

@@ -1,8 +1,8 @@
-"""Conflict-free class packers of the host-driven joint schedule (port of
-celeste_jl_tpu/parallel/packing.py): greedy coloring, Cyclades wave
-scheduling, power-of-two work chunking and the per-bucket launch widths.
-The JAX package's width-capped packer for its fused schedule
-(fused_color_classes and its cost model) waits for that schedule's port.
+"""Conflict-free class packers of the joint schedules (port of
+celeste_jl_tpu/parallel/packing.py): greedy coloring (the host-driven
+schedule), the width-capped lane-step-cost packer (the fused schedule,
+parallel/fused.py), Cyclades wave scheduling, power-of-two work chunking
+and the per-bucket launch widths.
 """
 
 import numpy as np
@@ -94,6 +94,104 @@ def color_classes(targets, neighbor_map, rng=None, tile=None):
     # widest first: the big classes amortize launch overhead best
     classes.sort(key=len, reverse=True)
     return classes
+
+
+# The JAX package's per-TR-step cost of a batched sub-fit, measured on its
+# TPU (tools/knee_probe.py over a (W lanes, P tile) grid):
+#
+#     wall / serialized step  ~=  W * (16.5 us + P^2 * 7 ns)
+#
+# linear in lane count W, with an affine per-lane cost in tile pixels. The
+# constants are kept as they are on every device: the class partition the
+# packer picks is part of the schedule, so the port picks the JAX
+# package's classes from the same seed. (Their H100 values are not
+# measured; a change would be a change of schedule.)
+LANE_STEP_US_FLOOR = 16.5
+LANE_STEP_NS_PER_PX = 7.0
+
+
+def _lane_step_cost(t):
+    """The cost model's per-TR-step cost (us) of ONE lane at tile size t."""
+    return LANE_STEP_US_FLOOR + max(t, 1) ** 2 * LANE_STEP_NS_PER_PX * 1e-3
+
+
+def fused_color_classes(targets, neighbor_map, rng=None, tile=None):
+    """Conflict-free classes minimizing the fused schedule's total
+    LANE-STEP COST under the linear cost model (_lane_step_cost).
+
+    The fused schedule runs, per sweep, one sub-fit per (class, tile
+    bucket) group, each padded to that bucket's power-of-two width W_t and
+    running every lane until the slowest converges. With per-step cost
+    W * c(P), a sweep costs ~ k * sum_t W_t * c(t) * steps, so the packer
+    searches class counts k and keeps the smallest feasible
+
+        cost(k) = k * sum_t width_t(t, k) * _lane_step_cost(t),
+
+    where width_t is the padded per-(class, bucket) width at an even
+    spread. Fewer classes is NOT cheaper once the max class pads up a
+    power of two; more classes is NOT cheaper once every class pays the
+    32-lane floor of the model.
+
+    tile: optional {source: tile_size}. Per-(class, bucket) group sizes
+    are capped at that bucket's padded width, so a class cannot hoard the
+    large-tile sources and widen the priciest lane grid."""
+    rng = rng or np.random.default_rng(42)
+    n = len(targets)
+    tile_of = (lambda s: int(tile[s])) if tile is not None else (lambda s: 0)
+    n_t = {}
+    for s in targets:
+        t = tile_of(s)
+        n_t[t] = n_t.get(t, 0) + 1
+
+    def width_t(t, k):
+        # the cost model's 32-lane floor, the same on every device: the
+        # partition is part of the schedule (the staged launch widths,
+        # fused_bucket_widths, have no floor)
+        floor = min(32, _next_pow2(max(n_t[t], 1)))
+        return max(floor, _next_pow2(-(-n_t[t] // k)))
+
+    def cost(k):
+        return k * sum(width_t(t, k) * _lane_step_cost(t) for t in n_t)
+
+    ks = sorted(range(1, n + 1), key=lambda k: (cost(k), k))
+    for k in ks:
+        classes = _try_color_capped(targets, neighbor_map, k,
+                                    {t: width_t(t, k) for t in n_t},
+                                    tile_of, rng)
+        if classes is not None:
+            return classes
+    return color_classes(targets, neighbor_map, rng)  # unreachable fallback
+
+
+def _try_color_capped(targets, neighbor_map, k, caps, tile_of, rng):
+    """Greedy k-coloring of `targets` with per-(class, tile) group sizes
+    capped at caps[t], highest-degree-first with a few shuffle retries.
+    None if infeasible at this k."""
+    for _ in range(4):
+        order = list(targets)
+        rng.shuffle(order)
+        order.sort(key=lambda s: -len(neighbor_map.get(s, ())))
+        classes = [[] for _ in range(k)]
+        members = [set() for _ in range(k)]
+        counts = [dict() for _ in range(k)]
+        ok = True
+        for s in order:
+            nbs = neighbor_map.get(s, ())
+            t = tile_of(s)
+            cands = [c for c in range(k)
+                     if counts[c].get(t, 0) < caps[t]
+                     and not any(nb in members[c] for nb in nbs)]
+            if not cands:
+                ok = False
+                break
+            c = min(cands, key=lambda c: (counts[c].get(t, 0),
+                                          len(classes[c])))
+            classes[c].append(s)
+            members[c].add(s)
+            counts[c][t] = counts[c].get(t, 0) + 1
+        if ok:
+            return [c for c in classes if c]
+    return None
 
 
 def _pow2_chunks(seq, floor=32, cap=None):

@@ -1,5 +1,5 @@
-"""Top-level inference schedules (port of celeste_jl_tpu/parallel/run.py's
-host-driven path; ParallelRun.jl).
+"""Top-level inference schedules (port of celeste_jl_tpu/parallel/run.py;
+ParallelRun.jl).
 
 The reference schedules per-source Newton fits across CPU threads with a
 Cyclades conflict-graph partition (ParallelRun.jl:135-397). Here the
@@ -8,12 +8,19 @@ of a class share pixels, so a class is one batched fit per tile bucket,
 with the neighbors' freshest variational parameters rendered as fixed
 background (the reference's inactive-source path, elbo_objective.jl:33-41).
 
-This is the JAX package's host-driven schedule (what it runs with
-CELESTE_FUSED=0, a Cyclades batch_size or a checkpoint); its one-launch
-fused schedule is not ported yet. Entry points run on the card unless the
-caller passes device="cpu". On a CUDA device every fit runs the kernels
-(K1 refresh, K2 Jacobi sweep, K3 TR subproblem); on the CPU the f64 parity
-route (torch eigh and the plain twins).
+The joint schedule runs on one engine, the fused schedule
+(parallel/fused.py), its state on the device: by default over the
+width-capped classes of packing.fused_color_classes (the JAX package's
+default), with fused=False over the greedy color_classes (the JAX
+package's CELESTE_FUSED=0 schedule, whose bits the engine reproduces).
+The host-driven loop runs only for a Cyclades batch_size, a checkpoint
+or a staging over the device budget.
+joint_infer_fields merges several fields into one fused schedule;
+joint_infer_fields_pipelined stages a stream of such groups, one ahead.
+Entry points run on the card unless the caller passes device="cpu". On a
+CUDA device every fit runs the kernels (K1 refresh, K2 Jacobi sweep, K3
+TR subproblem); on the CPU the f64 parity route (torch eigh and the plain
+twins).
 """
 
 import os
@@ -33,8 +40,9 @@ from ..vi.init import generic_init_source
 from ..vi.stochastic import SVIConfig, svi_maximize
 from .common import (TILE_BUCKETS, _beats, _next_pow2, _render_neighbor_bg,
                      is_production_run)
+from .fused import _fused_joint_dispatch, _fused_joint_finish
 from .packing import (_dual_chunk_cap, _pow2_chunks, _waves, color_classes,
-                      fused_bucket_widths)
+                      fused_bucket_widths, fused_color_classes)
 from .partition import partition_cyclades_dynamic
 from .state import (InferenceState, OptimizedSource, detection_active_boxes,
                     fit_for_width, read_fit)
@@ -144,7 +152,18 @@ def _wide_pass_host(st, union, newton_config, fresh, resolve=None,
             p["n_lanes"], p["pad"] - p["n_lanes"],
             pixels_per_lane_real=p["pixel_counts"][:p["n_lanes"]],
             pixels_per_lane_total=p["pixels_per_lane_total"],
-            f_calls=fcalls)
+            f_calls=fcalls, tile=p["tile"], bands=p["bands"],
+            hess_every=p["hess_every"])
+
+
+def _joint_configs(newton_config, config, device):
+    """(the full-budget fits' config (the isolated targets'), the warm
+    sweeps', the probe's, the polish's, the polish sweep count) of the
+    joint schedules on `device`."""
+    newton_config = _platform_newton_config(newton_config, device)
+    polish_cfg, n_polish = _polish_config(newton_config, config)
+    return (newton_config, _capped_step_config(newton_config, config),
+            _probe_config(newton_config, config), polish_cfg, n_polish)
 
 
 def one_node_joint_infer(catalog, images, target_sources=None,
@@ -152,15 +171,23 @@ def one_node_joint_infer(catalog, images, target_sources=None,
                          newton_config=NewtonConfig(), max_neighbors=8,
                          seed=42, state=None, checkpoint_path=None,
                          restart_final=True, active_boxes=None, *,
-                         device="cuda", dtype=torch.float32, plain=False):
+                         device="cuda", dtype=torch.float32, plain=False,
+                         fused=True):
     """Joint VI over all targets: num_joint_vi_iters warm sweeps over
     conflict-free classes of the overlap graph, each class one batched
-    launch per tile bucket with the neighbors as freshest-vp background.
-    The classes are a greedy graph coloring (color_classes); pass
-    batch_size for the reference's Cyclades batch/wave schedule
-    (ParallelRun.jl:135-196) instead. With the coloring, targets that
+    launch per tile bucket with the neighbors as freshest-vp background;
+    pass batch_size for the reference's Cyclades batch/wave schedule
+    (ParallelRun.jl:135-196) instead. With the classes, targets that
     share no pixels with another target are fit once, dual-init, at the
     full budget (_fit_isolated_multi).
+
+    The classes run as the fused schedule (parallel/fused.py), by default
+    packed by fused_color_classes (the JAX package's default); fused=False
+    packs them by the greedy color_classes, the JAX package's
+    CELESTE_FUSED=0 schedule (its host-driven loop and this engine give
+    the same bits over the same classes). A Cyclades batch_size, a
+    checkpoint_path, or a staging over the device budget takes the
+    host-driven loop.
 
     checkpoint_path: npz saved after every sweep or batch; if it exists,
     inference resumes from the stored cursor.
@@ -176,10 +203,8 @@ def one_node_joint_infer(catalog, images, target_sources=None,
     st = state or InferenceState(catalog, images, config, target_sources,
                                  max_neighbors, active_boxes=active_boxes,
                                  device=device, dtype=dtype, plain=plain)
-    newton_config = _platform_newton_config(newton_config, st.device)
-    step_config = _capped_step_config(newton_config, config)
-    restart_cfg = _probe_config(newton_config, config)
-    polish_cfg, n_polish = _polish_config(newton_config, config)
+    newton_config, step_config, restart_cfg, polish_cfg, n_polish = \
+        _joint_configs(newton_config, config, st.device)
     targets = st.targets
     tset = set(targets)
     nb_for_targets = {s: [n for n in st.neighbor_map[s] if n in tset]
@@ -207,6 +232,39 @@ def one_node_joint_infer(catalog, images, target_sources=None,
         cursor = st.restore(checkpoint_path)
         Log.info(f"joint infer: resuming at step {cursor}")
 
+    isolated_done = False
+    if batch_size is None and not checkpoint_path and targets:
+        telemetry.counters.reset()
+        try:
+            # stage the constrained classes' schedule, fit the isolated
+            # targets (never a constrained target's neighbor, so neither
+            # reads the other's updates), then run the schedule
+            handle = None
+            if constrained:
+                classes = (fused_color_classes(
+                    constrained, nb_for_targets, np.random.default_rng(seed),
+                    tile={s: int(st.tile[s]) for s in constrained})
+                    if fused else sweeps[0])
+                handle = _fused_joint_dispatch(
+                    [st], classes, step_config,
+                    n_sweeps=config.num_joint_vi_iters,
+                    n_restart=1 if restart_final else 0,
+                    restart_config=restart_cfg, polish_config=polish_cfg,
+                    n_polish=n_polish, plain=plain)
+            _fit_isolated_multi([st], isolated, newton_config, plain=plain)
+            isolated_done = True
+            if not constrained or handle is not None:
+                if handle is not None:
+                    _fused_joint_finish(handle)
+                telemetry.counters.report("joint infer (fused)", st.device)
+                return _collect_results(st)
+            # handle is None: the staging exceeded the device budget; the
+            # host-driven schedule below runs instead
+        except Exception as exc:
+            if not is_production_run():
+                raise
+            Log.exception(exc)
+
     def fit_class(cls, widths, cfg=None):
         # the tile-bucket groups of one class are mutually conflict-free
         pend = [st.dispatch_group([s for s in cls if st.tile[s] == P],
@@ -216,9 +274,10 @@ def one_node_joint_infer(catalog, images, target_sources=None,
         for p in pend:
             st.finish_group(p)
 
-    telemetry.counters.reset()
-    if batch_size is None and cursor == 0:
-        _fit_isolated_multi([st], isolated, newton_config, plain=plain)
+    if not isolated_done:
+        telemetry.counters.reset()
+        if batch_size is None and cursor == 0:
+            _fit_isolated_multi([st], isolated, newton_config, plain=plain)
     tile_of = lambda s: int(st.tile[s])
     w_by_groups = [fused_bucket_widths(groups, tile_of) for groups in sweeps]
     step = 0
@@ -240,8 +299,93 @@ def one_node_joint_infer(catalog, images, target_sources=None,
             for groups, widths in zip(sweeps, w_by_groups):
                 for cls in groups:
                     fit_class(cls, widths, cfg=polish_cfg)
-    telemetry.counters.report("joint infer")
+    telemetry.counters.report("joint infer", st.device)
     return _collect_results(st)
+
+
+def joint_infer_fields(fields, config=Config(),
+                       newton_config=NewtonConfig(), max_neighbors=8,
+                       seed=42, restart_final=True, *, device="cuda",
+                       dtype=torch.float32, plain=False):
+    """Joint VI over MULTIPLE independent fields (boxes) as ONE fused
+    schedule.
+
+    fields: list of dicts with keys `catalog`, `images`, and optionally
+    `target_sources` / `active_boxes` (as one_node_joint_infer takes
+    them). Returns a list of per-field result lists.
+
+    A sparse field alone fills few lanes of a class step. Fields never
+    conflict, so their classes merge laterally: the width-capped packer
+    runs on the union conflict graph with field-offset source ids and
+    packs sources of different fields into the same class. Reference
+    analog: the box-level task farm (contrib/nersc/infer.sl:30) x per-box
+    thread scheduling (ParallelRun.jl:302-369), which never shared a
+    thread pool across boxes. Falls back to per-field one_node_joint_infer
+    when the merged staging exceeds the device budget. Runs on `device`
+    in `dtype`; plain runs the kernels' plain twins."""
+    states, classes, isolated = _merged_states_classes(
+        fields, config, max_neighbors, seed, device, dtype, plain)
+    iso_cfg, step_cfg, restart_cfg, polish_cfg, n_polish = _joint_configs(
+        newton_config, config, resolve(device))
+    telemetry.counters.reset()
+    handle = None
+    if classes:
+        handle = _fused_joint_dispatch(
+            states, classes, step_cfg, n_sweeps=config.num_joint_vi_iters,
+            n_restart=1 if restart_final else 0, restart_config=restart_cfg,
+            polish_config=polish_cfg, n_polish=n_polish, plain=plain)
+        if handle is None:
+            return [one_node_joint_infer(
+                f["catalog"], f["images"], f.get("target_sources"), config,
+                newton_config=newton_config, max_neighbors=max_neighbors,
+                seed=seed, restart_final=restart_final,
+                active_boxes=f.get("active_boxes"), device=device,
+                dtype=dtype, plain=plain) for f in fields]
+    _fit_isolated_multi(states, isolated, iso_cfg, plain=plain)
+    if handle is not None:
+        _fused_joint_finish(handle)
+    telemetry.counters.report("joint infer (fields, fused)",
+                              resolve(device))
+    return [_collect_results(st) for st in states]
+
+
+def _merged_states_classes(fields, config, max_neighbors, seed, device,
+                           dtype, plain):
+    """Per-field InferenceStates and merged-id conflict classes of one
+    fused multi-field schedule (the staging step of joint_infer_fields and
+    joint_infer_fields_pipelined). Targets with no target neighbor are split out
+    (third value, merged ids): their fits are independent of the whole
+    schedule, so they go to wide dual-init launches (_fit_isolated_multi)
+    instead of riding every sweep."""
+    states = [InferenceState(f["catalog"], f["images"], config,
+                             f.get("target_sources"), max_neighbors,
+                             active_boxes=f.get("active_boxes"),
+                             device=device, dtype=dtype, plain=plain)
+              for f in fields]
+    if len({len(st.images) for st in states}) > 1:
+        raise ValueError("all fields must have the same number of bands")
+
+    offsets = np.cumsum([0] + [len(st.catalog) for st in states])
+    merged_targets, merged_nb, merged_tile = [], {}, {}
+    for f, st in enumerate(states):
+        o = int(offsets[f])
+        tset = set(st.targets)
+        for s in st.targets:
+            merged_targets.append(o + s)
+            merged_nb[o + s] = [o + n for n in st.neighbor_map[s]
+                                if n in tset]
+            merged_tile[o + s] = int(st.tile[s])
+
+    isolated = [m for m in merged_targets if not merged_nb[m]]
+    constrained = [m for m in merged_targets if merged_nb[m]]
+    classes = (fused_color_classes(constrained, merged_nb,
+                                   np.random.default_rng(seed),
+                                   tile=merged_tile)
+               if constrained else [])
+    Log.info(f"joint infer (fields): {len(states)} fields, "
+             f"{len(merged_targets)} sources ({len(isolated)} isolated), "
+             f"{len(classes)} merged classes")
+    return states, classes, isolated
 
 
 def _fit_isolated_multi(states, isolated, newton_config, plain=False):
@@ -295,7 +439,7 @@ def _fit_isolated_multi(states, isolated, newton_config, plain=False):
                                          st0.tensor(nb_mask), patches)
         res = fit_for_width(pad)(st0.tensor(vp0), patches, bg_E, bg_V,
                                  config=newton_config, plain=plain)
-        return (members, n, pad, res, counts, t0,
+        return (members, t, n, pad, res, counts, t0,
                 int(np.prod(patches.mask.shape[1:])),
                 f"isolated n={n} pad={pad} P{t}")
 
@@ -315,7 +459,7 @@ def _fit_isolated_multi(states, isolated, newton_config, plain=False):
                 Log.exception(exc)
                 telemetry.counters.failures += len(members)
 
-    for members, n, pad, res, counts, t0, lane_total, label in pending:
+    for members, t, n, pad, res, counts, t0, lane_total, label in pending:
         nl = 2 * n
         try:
             vp, elbo, conv, iters, f_calls = read_fit(res, nl)
@@ -341,7 +485,67 @@ def _fit_isolated_multi(states, isolated, newton_config, plain=False):
         telemetry.record_fit_launch(
             nl, pad - nl, pixels_per_lane_real=counts[:nl],
             pixels_per_lane_total=lane_total,
-            f_calls=f_calls)
+            f_calls=f_calls, tile=t, bands=len(states[0].images),
+            hess_every=newton_config.hess_every)
+
+
+def joint_infer_fields_pipelined(groups, config=Config(),
+                                 newton_config=NewtonConfig(),
+                                 max_neighbors=8, seed=42,
+                                 restart_final=True, *, device="cuda",
+                                 dtype=torch.float32, plain=False):
+    """Farm-worker pipeline over fused multi-field schedules.
+
+    `groups` is an ITERABLE of `fields` lists (each group one fused
+    schedule, as joint_infer_fields takes it); yields one result list per
+    group, in order. Group k+1 is pulled from the (typically lazy)
+    iterable, so the caller's image loading and detection run, and is
+    staged before group k's schedule runs and its results are yielded:
+    the JAX package's double-buffered box staging. (There, group k's
+    device work overlaps group k+1's host staging; the port's fit drives
+    its loop from the host, so here the two run one after the other.)
+
+    Two groups' stagings are held at once, so the per-group device budget
+    is half joint_infer_fields'. A group that still exceeds it drains the
+    pipeline and falls back to the per-field path. Telemetry counters are
+    NOT reset per group: reset them before iterating for a per-farm
+    report."""
+    pending = None
+    iso_cfg, step_cfg, restart_cfg, polish_cfg, n_polish = _joint_configs(
+        newton_config, config, resolve(device))
+
+    def finish(p):
+        handle, states, isolated = p
+        _fit_isolated_multi(states, isolated, iso_cfg, plain=plain)
+        if handle is not None:
+            _fused_joint_finish(handle)
+        return [_collect_results(st) for st in states]
+
+    n_restart = 1 if restart_final else 0
+    for fields in groups:
+        states, classes, isolated = _merged_states_classes(
+            fields, config, max_neighbors, seed, device, dtype, plain)
+        handle = (_fused_joint_dispatch(
+            states, classes, step_cfg, n_sweeps=config.num_joint_vi_iters,
+            n_restart=n_restart, restart_config=restart_cfg,
+            polish_config=polish_cfg, n_polish=n_polish,
+            budget_bytes=2 << 30, plain=plain) if classes else None)
+        if classes and handle is None:
+            if pending is not None:
+                yield finish(pending)
+                pending = None
+            yield [one_node_joint_infer(
+                f["catalog"], f["images"], f.get("target_sources"), config,
+                newton_config=newton_config, max_neighbors=max_neighbors,
+                seed=seed, restart_final=restart_final,
+                active_boxes=f.get("active_boxes"), device=device,
+                dtype=dtype, plain=plain) for f in fields]
+            continue
+        if pending is not None:
+            yield finish(pending)
+        pending = (handle, states, isolated)
+    if pending is not None:
+        yield finish(pending)
 
 
 def one_node_single_infer(catalog, images, target_sources=None,
@@ -364,7 +568,7 @@ def one_node_single_infer(catalog, images, target_sources=None,
             for P in TILE_BUCKETS]
     for p in pend:
         st.finish_group(p)
-    telemetry.counters.report("single infer")
+    telemetry.counters.report("single infer", st.device)
     return _collect_results(st)
 
 
@@ -418,7 +622,7 @@ def one_node_svi_infer(catalog, images, target_sources=None,
         telemetry.counters.pixel_visits += int(
             counts.sum() * svi_config.steps
             * min(svi_config.pixel_fraction, 1.0))
-    telemetry.counters.report("svi infer")
+    telemetry.counters.report("svi infer", st.device)
     return _collect_results(st)
 
 
@@ -453,13 +657,16 @@ def _collect_results(st: InferenceState):
 
 def infer_box(images, box=None, method="joint_vi", catalog=None,
               config=Config(), *, device="cuda", dtype=torch.float32,
-              plain=False, **detect_kwargs):
+              plain=False, fused=True, **detect_kwargs):
     """Detect (or take) a catalog and infer all sources inside `box`
     (ParallelRun.jl:652-673). method: joint_vi | single_vi | svi | mcmc.
     Runs on `device` (raises for CUDA without a card) in `dtype`; plain
     runs the kernels' plain twins (the comparison route; svi and mcmc have
-    none to choose). Phase wall times (detect, infer) are logged, as the
-    reference's box-level @time reporting (ParallelRun.jl:655-669)."""
+    none to choose); fused=False runs joint_vi over the JAX package's
+    CELESTE_FUSED=0 classes (one_node_joint_infer's switch). Phase wall
+    times (detect, infer) are logged, as the reference's box-level @time
+    reporting
+    (ParallelRun.jl:655-669)."""
     if method not in ("joint_vi", "single_vi", "svi", "mcmc"):
         raise ValueError(f"unknown method {method!r}")
     resolve(device)
@@ -487,7 +694,7 @@ def infer_box(images, box=None, method="joint_vi", catalog=None,
     if method == "joint_vi":
         out = one_node_joint_infer(catalog, images, targets, config,
                                    active_boxes=active_boxes, plain=plain,
-                                   **kw)
+                                   fused=fused, **kw)
     elif method == "single_vi":
         out = one_node_single_infer(catalog, images, targets, config,
                                     active_boxes=active_boxes, plain=plain,

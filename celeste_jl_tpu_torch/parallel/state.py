@@ -372,6 +372,9 @@ class InferenceState:
                     inc=inc, pixel_counts=pixel_counts,
                     keep_better=keep_better,
                     pixels_per_lane_total=int(np.prod(patches.mask.shape[1:])),
+                    tile=int(patches.pixels.shape[-1]),
+                    bands=int(patches.pixels.shape[-3]),
+                    hess_every=newton_config.hess_every,
                     label=f"n={n} pad={pad} P{patches.pixels.shape[-1]}")
 
     def finish_group(self, pending):
@@ -415,7 +418,8 @@ class InferenceState:
             nl, pending["pad"] - nl,
             pixels_per_lane_real=pending["pixel_counts"][:nl],
             pixels_per_lane_total=pending["pixels_per_lane_total"],
-            f_calls=f_calls)
+            f_calls=f_calls, tile=pending["tile"], bands=pending["bands"],
+            hess_every=pending["hess_every"])
 
     def fit_group(self, idx, newton_config: NewtonConfig, use_bg=True,
                   bg_vps=None, fresh_init=False, keep_better=False,

@@ -10,13 +10,14 @@ wall times and idle percentage (ParallelRun.jl:327-365). Recorded here:
                         work a perfectly ragged launch would not do;
   * launches, launch_s - batched fit launches and their summed wall time;
   * lane_widths       - fit launches by lane width (real + padding lanes);
-  * busy_s()          - the union of the launch-pending intervals.
+  * busy_s()          - the union of the launch-pending intervals;
+  * serial_steps      - the fused joint schedule's serial depth: over its
+                        sub-fits, the sum of the slowest lane's TR steps;
+  * model_flops       - the real lanes' useful work priced by
+                        utils/flops.py's model; mfu() sets it over busy_s()
+                        against the card's peak.
 
 Utilization = pixel_visits / (pixel_visits + padded_visits).
-
-No model-FLOP count: the JAX package prices fits with XLA's cost analysis
-(utils/flops.py), which has no port yet, so `model_flops` stays 0 and
-`report` prints no MFU.
 """
 
 import collections
@@ -39,7 +40,10 @@ class Counters:
     sources_fit: int = 0
     newton_iters: int = 0
     failures: int = 0
-    # stays 0 until utils/flops.py is ported (ROADMAP queue 1 item 4)
+    # fused-schedule serial depth: over its sub-fits, the slowest lane's TR
+    # steps (a batched fit runs until its slowest lane stops)
+    serial_steps: int = 0
+    # model FLOPs of the real lanes' useful work (utils/flops.py)
     model_flops: float = 0.0
     lane_widths: collections.Counter = field(
         default_factory=collections.Counter)
@@ -62,6 +66,15 @@ class Counters:
                 end = b
         return total
 
+    def mfu(self, device=None):
+        """(model FLOP/s over busy_s(), fraction of the card's peak or
+        None: the CPU, or an unknown card)."""
+        from .flops import mfu as _mfu
+        busy = self.busy_s()
+        if busy <= 0:
+            return 0.0, None
+        return _mfu(self.model_flops, busy, device)
+
     def utilization(self):
         total = self.pixel_visits + self.padded_visits
         return self.pixel_visits / total if total else 1.0
@@ -71,18 +84,23 @@ class Counters:
         lanes = sum(w * n for w, n in self.lane_widths.items())
         return self.sources_fit / lanes if lanes else 1.0
 
-    def report(self, prefix="telemetry"):
+    def report(self, prefix="telemetry", device=None):
+        """Log the counters; `device` is the fits' device, for the MFU."""
         busy = self.busy_s()
         visits_per_s = self.pixel_visits / busy if busy > 0 else 0.0
-        # MFU waits for a port of utils/flops.py (ROADMAP queue 1 item 4)
+        achieved, mfu = self.mfu(device)
         Log.info(
             f"{prefix}: {self.sources_fit} fits in {self.launches} launches "
             f"({busy:.2f}s busy, {self.launch_s:.2f}s summed), lane fill "
             f"{100 * self.lane_fill():.1f}%, {self.pixel_visits:.3g} "
             f"pixel-visits ({visits_per_s:.3g}/s), utilization "
             f"{100 * self.utilization():.1f}%, {self.newton_iters} newton "
-            f"iters, {self.failures} failures; MFU not computed (no FLOP "
-            f"model yet)")
+            f"iters"
+            + (f" ({self.serial_steps} serialized)" if self.serial_steps
+               else "")
+            + f", {achieved / 1e9:.3g} model GFLOP/s"
+            + (f" (MFU {100 * mfu:.3f}%)" if mfu is not None else "")
+            + f", {self.failures} failures")
 
 
 # module-level counters, reset per box by the schedules
@@ -117,13 +135,14 @@ def launch_timer(label=""):
 
 
 def record_fit_launch(n_real, n_padded, pixels_per_lane_real,
-                      pixels_per_lane_total, f_calls):
+                      pixels_per_lane_total, f_calls, tile=None, bands=5,
+                      hess_every=6):
     """Account one fit launch: n_real real lanes and n_padded padding lanes
     of a tile with `pixels_per_lane_total` pixel slots, of which
     `pixels_per_lane_real` (per real lane) were mask-true. f_calls:
-    per-lane function evaluations, length n_real + n_padded. (The JAX
-    package's tile, bands and hess_every arguments feed its FLOP model,
-    which has no port yet.)"""
+    per-lane function evaluations, length n_real + n_padded. With `tile`,
+    the real lanes' work is also priced in model FLOPs (utils/flops.py) at
+    `bands` bands and a refresh every `hess_every` TR steps."""
     f = np.asarray(f_calls)
     real_calls = f[:n_real]
     counters.sources_fit += n_real
@@ -133,3 +152,8 @@ def record_fit_launch(n_real, n_padded, pixels_per_lane_real,
     total = float(pixels_per_lane_total) * float(f.sum())
     counters.pixel_visits += int(real)
     counters.padded_visits += int(max(total - real, 0.0))
+    if tile is not None and n_real:
+        from .flops import fit_flops
+        iters = np.maximum(real_calls - 1, 0)   # f_calls = 1 + TR steps
+        counters.model_flops += fit_flops(iters, real_calls, tile,
+                                          B=bands, hess_every=hess_every)

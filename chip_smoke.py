@@ -47,10 +47,13 @@ Phases, one line each; the first failure exits non-zero:
   8. the fit of phase 4 with the split sweep (NewtonConfig.eigh_fused =
      False) against the fused one, f64, 256 sources: no flip, the same
      iterations per lane, ELBOs within 1e-9 relative;
-  9. one sky box end to end: benchmark/run_field.py's field of record (512
-     sources on 1024 x 1024 px, seed 7) drawn on the card, then
-     infer_box(joint_vi): detection (native labelling) and the host-driven
-     joint schedule through K1-K3, f32, scored as run_field.py scores it;
+  9. one sky box end to end: benchmark/run_field.py's field at its density
+     of record cut to 256 sources on 724 x 724 px (its record is 512 on
+     1024 x 1024; phase 13 carries that density at 1024 sources), seed 7,
+     drawn on the card, then
+     infer_box(joint_vi): detection (native labelling) and the joint
+     schedule (the fused default) through K1-K3, f32, scored as
+     run_field.py scores it;
      then single_vi on the same images and detections (15 refreshes a
      lane). Prints detect and infer seconds, sources/s, completeness,
      type accuracy, median r-flux error, the fit launches by lane width
@@ -61,7 +64,9 @@ Phases, one line each; the first failure exits non-zero:
  10. the joint field path through the kernels and through the plain twins
      (infer_box(plain=True)), f64, 16 sources on 181 x 181 px (phase 9's
      density): 0 classification flips, no source's ELBO worse than 1e-4
-     relative; each departure printed;
+     relative; each departure printed. Its two runs go in processes of
+     their own, beside phase 14's, after phase 13 (host-bound checks, so
+     they share the card without slowing a phase that is timed);
  11. the survey app at full width: one SDSS field (2048 x 1489 px, 5
      bands, 400 sources as run_field.py draws them, a psField PSF whose
      width varies by +-13 % across the frame) written to FITS files with
@@ -80,16 +85,43 @@ Phases, one line each; the first failure exits non-zero:
  12. the app's routes, f64, on a 256 x 256 SDSS field of 32 sources:
      fit_patch_psfs through K3 and through its twin (packed params within
      1e-9 relative); infer_box(joint_vi) through the kernels and through
-     plain=True (0 flips, no ELBO worse than 1e-4 relative); main with
+     plain=True (0 flips, no ELBO worse than 1e-4 relative; the twins' run
+     in a process of its own beside the phase's other runs); main with
      --method svi and single_vi (finite ELBOs, completeness >= 0.95) and
-     the median ELBO gap between them.
-Each phase prints its wall time. The line before the last is the kernels'
+     the median ELBO gap between them;
+ 13. the multi-field path at benchmark/run_multifield.py's size of
+     record, through the port's runner (benchmark/multifield.run_pass): 8
+     fields x 128 sources on 512 x 512 px (field f from seed 7 + 1000 f)
+     drawn on the card, detected per field, inferred as ONE merged fused
+     schedule by joint_infer_fields, f32 through K1-K3; scored as
+     run_multifield.py scores. Prints the scores, fits, busy and summed
+     launch seconds, device fits/s and sources/s, e2e sources/s,
+     utilization, model GFLOP/s and MFU, serial TR steps, iterations a
+     fit, converged fraction, the infer and detect walls, the fused
+     staging's and the schedule's seconds, the fit launches by lane width,
+     the merged classes (and how many hold sources of 2+ fields) and
+     K1-K3's launches, and the runner's JSON record. Bars: finite ELBOs,
+     0 failures, completeness >= 0.95, type accuracy >= 0.90, K1-K3
+     launched, the fused staging taken (no budget fallback), a class with
+     sources of two fields;
+ 14. the multi-field routes, f64, on two fields at phase 10's density (8
+     sources on 128 x 128 px, seeds 7 and 1007): joint_infer_fields
+     through the kernels and the twins (0 flips, no ELBO worse than 1e-4
+     relative); the merged result against each field's own
+     one_node_joint_infer (0 flips, the worst departure printed); one
+     field over the host schedule's classes (fused=False) against the
+     host-driven loop (a checkpoint run; every vs within 1e-8);
+     joint_infer_fields_pipelined over lazy one-field groups
+     against joint_infer_fields per group (bit for bit, the generator a
+     group ahead).
+Each phase prints its wall time; phases 10 and 14 run together after
+13 and print one. The line before the last is the kernels'
 JSON record (each kernel's launches counted on its path: phase 3 for K1-K3,
-6 for K4, 8 for K2a/K2b, `field_launches` on phase 9's joint run and
-`app_launches` on phase 11's; its bound from this run's shapes at the
-H100's published f32 and memory peaks); the last line is {"ok": true,
-"device": {...}}. The app's files go to a directory under build/, removed
-at the end. Imports nothing of JAX.
+6 for K4, 8 for K2a/K2b, `field_launches` on phase 9's joint run,
+`app_launches` on phase 11's and `multifield_launches` on phase 13's; its
+bound from this run's shapes at the H100's published f32 and memory
+peaks); the last line is {"ok": true, "device": {...}}. The app's files go
+to a directory under build/, removed at the end. Imports nothing of JAX.
 """
 
 import json
@@ -1131,66 +1163,20 @@ def phase_split_fit(device="cuda", n_sources=256, tile=32):
 
 
 def field_scene(n_sources, size, seed, device):
-    """benchmark/run_field.py's field: n_sources from default_rng(seed),
-    the first half stars (r-flux lognormal(3.0, 0.6)), the rest galaxies
-    (lognormal(3.2, 0.5), radius lognormal(0.7, 0.3) px, axis ratio
-    0.25-0.9, any angle), 16 px from the edges of a size x size 5-band
-    image (sky 0.05 nMgy, 800 e-/nMgy), drawn by gen_images_fast on
-    `device`. Returns (images, truth)."""
-    from celeste_jl_tpu_torch.synthetic import (gen_images_fast,
-                                                make_blank_images,
-                                                sample_galaxy, sample_star)
+    """benchmark/run_field.py's field, drawn on `device` (the port's
+    multi-field runner draws the same: benchmark.multifield.make_field).
+    Returns (images, truth)."""
+    from celeste_jl_tpu_torch.benchmark.multifield import make_field
 
-    margin = 16.0
-    rng = np.random.default_rng(seed)
-    truth = []
-    pos = margin + rng.random((n_sources, 2)) * (size - 2 * margin)
-    for i in range(n_sources):
-        p = tuple(pos[i])
-        if i < n_sources // 2:
-            truth.append(sample_star(pos=p, r_flux=float(
-                np.exp(rng.normal(3.0, 0.6)))))
-        else:
-            truth.append(sample_galaxy(
-                pos=p, r_flux=float(np.exp(rng.normal(3.2, 0.5))),
-                gal_radius_px=float(np.exp(rng.normal(0.7, 0.3))),
-                gal_axis_ratio=float(rng.uniform(0.25, 0.9)),
-                gal_angle=float(rng.uniform(0.0, np.pi))))
-    images = make_blank_images(H=size, W=size, sky_nmgy=0.05,
-                               nelec_per_nmgy=800.0)
-    gen_images_fast(images, truth, seed=seed, device=device)
-    return images, truth
+    return make_field(seed, n_sources, size, device)
 
 
 def field_score(results, truth):
-    """benchmark/run_field.py's score(): results matched to the truth
-    within 2 px (identity WCS), type accuracy over the matched, and the
-    r-flux relative errors of the matched under the fitted type. Returns
-    (matched, type accuracy, errors)."""
-    from scipy.spatial import cKDTree
+    """benchmark/run_field.py's score() (benchmark.multifield.score):
+    (matched, type accuracy, r-flux relative errors)."""
+    from celeste_jl_tpu_torch.benchmark.multifield import score
 
-    from celeste_jl_tpu_torch.models.params import ids
-
-    if not results:
-        return 0, 0.0, []
-    tpos = np.array([t.pos for t in truth])
-    rpos = np.array([r.init_pos for r in results])
-    dist, nearest = cKDTree(tpos).query(rpos, k=1)
-    matched = dist < 2.0
-    type_ok, errs = 0, []
-    for r, t_i, m in zip(results, nearest, matched):
-        if not m:
-            continue
-        t = truth[t_i]
-        p_star = r.vs[ids.is_star[0]]
-        type_ok += int((p_star > 0.5) == t.is_star)
-        tf = (t.star_fluxes if t.is_star else t.gal_fluxes)[2]
-        j = 0 if p_star > 0.5 else 1
-        f = float(np.exp(r.vs[ids.flux_loc[j]]
-                         + 0.5 * r.vs[ids.flux_scale[j]]))
-        errs.append(abs(f - tf) / tf)
-    n_match = int(matched.sum())
-    return n_match, type_ok / max(n_match, 1), errs
+    return score(results, truth)
 
 
 class KernelWidths:
@@ -1311,10 +1297,12 @@ def _native_available():
     return _native.available()
 
 
-def phase_field(device="cuda", n_sources=512, size=1024, seed=7, rec=None,
+def phase_field(device="cuda", n_sources=256, size=724, seed=7, rec=None,
                 config=None, single_newton=None, bars=True):
-    """benchmark/run_field.py's field at its size of record through the
-    port's infer_box (detection, then joint_vi's host-driven schedule),
+    """benchmark/run_field.py's field at its density of record (its record,
+    512 sources on 1024 x 1024 px, cut to 256 on 724 x 724 to keep the
+    whole script's phase walls under 750 s) through the
+    port's infer_box (detection, then joint_vi's schedule, fused by default),
     f32, scored as run_field.py scores it; then single_vi on the same
     images, detected catalog and footprints. With `rec`, K1-K3 are timed
     at the joint run's median fit-launch width. single_newton: the
@@ -1379,53 +1367,72 @@ def refresh_kernel_at(n_sources, tile, device="cuda", dtype=None):
                         f64=dtype == torch.float64))
 
 
+def _field_route(plain, device, n_sources, size, seed, config):
+    """One side of phase 10, in a process of its own: infer_box(joint_vi)
+    on the field through the kernels, or through their twins (plain),
+    f64. Returns (results, kernel launches, their summary, seconds)."""
+    import torch
+
+    from celeste_jl_tpu_torch.parallel.run import infer_box
+    from celeste_jl_tpu_torch.utils.config import Config
+
+    # one intra-op thread: the route processes share the host's cores
+    torch.set_num_threads(1)
+    images, _ = field_scene(n_sources, size, seed, device)
+    t0 = time.perf_counter()
+    with KernelWidths() as rec:
+        res = infer_box(images, method="joint_vi", config=config or Config(),
+                        device=device, dtype=torch.float64, plain=plain,
+                        thresh=6.0, boxsize=(size, size),
+                        match_radius_deg=1.0)
+    return res, rec.launches(), rec.summary(), time.perf_counter() - t0
+
+
+def _submit_field_routes(pool, device="cuda", n_sources=16, size=181,
+                         seed=7, config=None):
+    """Phase 10's two runs, submitted to `pool`."""
+    return [pool.submit(_field_route, plain, device, n_sources, size, seed,
+                        config) for plain in (False, True)]
+
+
+def _check_field_routes(pending, device):
+    """Phase 10's bar on its two runs (see phase_field_routes)."""
+    (rk, launches, summary, tk), (rp, _, _, tp) = (p.result()
+                                                   for p in pending)
+    check(len(rk) > 0, "phase 10: no source detected")
+    flips, rel = _route_diff("phase 10", rk, rp)
+    msg = (f"phase 10: {len(rk)} sources f64, kernels vs plain twins: "
+           f"{flips} classification flips; ELBO rel worst {rel.min():.3g}, "
+           f"best {rel.max():.3g}; kernels {tk:.3f} s, plain {tp:.3f} s; "
+           f"{summary}; bar: 0 flips, worst > -{SLICE_ELBO_TOL:g}")
+    check(flips == 0 and bool(np.all(rel > -SLICE_ELBO_TOL)), msg)
+    if device == "cuda":
+        check(all(n > 0 for n in launches.values()),
+              f"phase 10: a field kernel never launched: {launches}")
+    print(msg, flush=True)
+    print("phase 10 ok", flush=True)
+
+
+def _route_pool(n):
+    """A pool of n spawned processes (a worker that dies fails the phase;
+    all are stopped when the pool closes)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(
+        n, mp_context=multiprocessing.get_context("spawn"))
+
+
 def phase_field_routes(device="cuda", n_sources=16, size=181, seed=7,
                        config=None):
     """The field path through the kernels and through their plain twins
     (infer_box(plain=True)), f64, on run_field.py's density: phase 4's bar
     (0 classification flips, no source's ELBO worse than 1e-4 relative),
-    each departure printed."""
-    import torch
-
-    from celeste_jl_tpu_torch.models.params import ids
-    from celeste_jl_tpu_torch.parallel.run import infer_box
-    from celeste_jl_tpu_torch.utils.config import Config
-
-    images, _ = field_scene(n_sources, size, seed, device)
-    kw = dict(method="joint_vi", config=config or Config(), device=device,
-              dtype=torch.float64, thresh=6.0, boxsize=(size, size),
-              match_radius_deg=1.0)
-    t0 = time.perf_counter()
-    with KernelWidths() as rk_rec:
-        rk = infer_box(images, **kw)
-    t1 = time.perf_counter()
-    rp = infer_box(images, plain=True, **kw)
-    t2 = time.perf_counter()
-    check(len(rk) == len(rp) > 0 and all(
-        np.array_equal(a.init_pos, b.init_pos) for a, b in zip(rk, rp)),
-        "phase 10: the two routes detected different catalogs")
-    star_k = np.array([r.vs[ids.is_star[0]] > 0.5 for r in rk])
-    star_p = np.array([r.vs[ids.is_star[0]] > 0.5 for r in rp])
-    ek = np.array([r.elbo for r in rk])
-    ep = np.array([r.elbo for r in rp])
-    rel = (ek - ep) / np.abs(ep)
-    for i in np.nonzero((star_k != star_p) | (rel != 0.0))[0]:
-        print(f"phase 10: source {i} at {rk[i].init_pos}: star {star_k[i]} "
-              f"(kernels) / {star_p[i]} (plain), ELBO rel {rel[i]:.3g}",
-              flush=True)
-    flips = int(np.sum(star_k != star_p))
-    msg = (f"phase 10: {len(rk)} sources f64, kernels vs plain twins: "
-           f"{flips} classification flips; ELBO rel worst {rel.min():.3g}, "
-           f"best {rel.max():.3g}; kernels {t1 - t0:.3f} s, plain "
-           f"{t2 - t1:.3f} s; {rk_rec.summary()}; bar: 0 flips, worst > "
-           f"-{SLICE_ELBO_TOL:g}")
-    check(flips == 0 and bool(np.all(np.isfinite(ek)))
-          and bool(np.all(rel > -SLICE_ELBO_TOL)), msg)
-    if device == "cuda":
-        check(all(n > 0 for n in rk_rec.launches().values()),
-              f"phase 10: a field kernel never launched: {rk_rec.launches()}")
-    print(msg, flush=True)
-    print("phase 10 ok", flush=True)
+    each departure printed. The two runs go in two processes at once
+    (main runs them beside phase 14's, phase_routes)."""
+    with _route_pool(2) as pool:
+        _check_field_routes(_submit_field_routes(
+            pool, device, n_sources, size, seed, config), device)
 
 
 # ---------------------------------------------------------------------------
@@ -1855,22 +1862,26 @@ def phase_app_routes(device="cuda", size=256, n_sources=32, seed=7,
     loaded images through the kernels and through plain=True (0 flips, no
     ELBO worse than 1e-4 relative); then main with --method svi and
     single_vi (every ELBO finite, completeness >= 0.95), and the median
-    ELBO gap between them. config: infer_box's Config (default Config())
-    for a CPU rehearsal."""
+    ELBO gap between them. The twins' infer_box runs in a process of its
+    own from the phase's start (it writes and loads the same field from
+    the same seed), beside this process's runs. config: infer_box's
+    Config (default Config()) for a CPU rehearsal."""
     import shutil
     import tempfile
 
     import torch
 
     from celeste_jl_tpu_torch.io.sdss import RunCamcolField, SDSSDataSet
-    from celeste_jl_tpu_torch.models.params import ids
     from celeste_jl_tpu_torch.models.psf_fit import fit_patch_psfs
     from celeste_jl_tpu_torch.parallel.run import infer_box
     from celeste_jl_tpu_torch.utils.config import Config
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="app-", dir=os.path.join(ROOT, "build"))
+    pool = _route_pool(1)
     try:
+        twin = pool.submit(_app_route, True, True, device, size, n_sources,
+                           seed, config)
         base = os.path.join(tmp, "sdss")
         truth, wcs = write_sdss_field(base, size, size, n_sources, seed,
                                       device)
@@ -1897,31 +1908,9 @@ def phase_app_routes(device="cuda", size=256, n_sources=32, seed=7,
         t0 = time.perf_counter()
         with KernelWidths() as rk_rec:
             rk = infer_box(images, **kw)
-        t1 = time.perf_counter()
-        rp = infer_box(images, plain=True, **kw)
-        t2 = time.perf_counter()
-        check(len(rk) == len(rp) > 0 and all(
-            np.array_equal(a.init_pos, b.init_pos) for a, b in zip(rk, rp)),
-            "phase 12: the two routes detected different catalogs")
-        star_k = np.array([r.vs[ids.is_star[0]] > 0.5 for r in rk])
-        star_p = np.array([r.vs[ids.is_star[0]] > 0.5 for r in rp])
-        ek = np.array([r.elbo for r in rk])
-        ep = np.array([r.elbo for r in rp])
-        rel = (ek - ep) / np.abs(ep)
-        flips = int(np.sum(star_k != star_p))
-        msg = (f"phase 12: infer_box(joint_vi) {len(rk)} sources f64 on the "
-               f"SDSS field, kernels vs plain twins: {flips} flips; ELBO rel "
-               f"worst {rel.min():.3g}, best {rel.max():.3g}; kernels "
-               f"{t1 - t0:.3f} s, plain {t2 - t1:.3f} s; "
-               f"{rk_rec.summary()}; bar: 0 flips, worst > "
-               f"-{SLICE_ELBO_TOL:g}")
-        check(flips == 0 and bool(np.all(np.isfinite(ek)))
-              and bool(np.all(rel > -SLICE_ELBO_TOL)), msg)
-        if device == "cuda":
-            check(all(n > 0 for n in rk_rec.launches().values()),
-                  f"phase 12: a field kernel never launched: "
-                  f"{rk_rec.launches()}")
-        print(msg, flush=True)
+        t_k = time.perf_counter() - t0
+        # read now: the main runs below count launches of their own
+        k_launches, k_summary = rk_rec.launches(), rk_rec.summary()
 
         box = app_box(wcs, size, size)
         runs = {}
@@ -1946,7 +1935,22 @@ def phase_app_routes(device="cuda", size=256, n_sources=32, seed=7,
                   msg + f" (bar {FIELD_COMPLETENESS_BAR})")
             print(msg, flush=True)
             runs[method] = {tuple(x.init_pos): x.elbo for x in res}
+
+        rp, t_p = twin.result()
+        check(len(rk) > 0, "phase 12: no source detected")
+        flips, rel = _route_diff("phase 12", rk, rp)
+        msg = (f"phase 12: infer_box(joint_vi) {len(rk)} sources f64 on the "
+               f"SDSS field, kernels vs plain twins: {flips} flips; ELBO rel "
+               f"worst {rel.min():.3g}, best {rel.max():.3g}; kernels "
+               f"{t_k:.3f} s, plain {t_p:.3f} s; {k_summary}; bar: 0 "
+               f"flips, worst > -{SLICE_ELBO_TOL:g}")
+        check(flips == 0 and bool(np.all(rel > -SLICE_ELBO_TOL)), msg)
+        if device == "cuda":
+            check(all(n > 0 for n in k_launches.values()),
+                  f"phase 12: a field kernel never launched: {k_launches}")
+        print(msg, flush=True)
     finally:
+        pool.shutdown(cancel_futures=True)
         shutil.rmtree(tmp, ignore_errors=True)
     common = set(runs["svi"]) & set(runs["single_vi"])
     gap = [runs["single_vi"][k] - runs["svi"][k] for k in common]
@@ -1954,6 +1958,435 @@ def phase_app_routes(device="cuda", size=256, n_sources=32, seed=7,
           f"ELBO gap (single_vi - svi) {float(np.median(gap)):.4f} nats",
           flush=True)
     print("phase 12 ok", flush=True)
+
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: the multi-field fused schedule
+# ---------------------------------------------------------------------------
+
+class FusedStagings:
+    """Records, while open, each _fused_joint_dispatch of the schedules in
+    parallel/run.py: (states, classes, handle), the handle None where the
+    staging exceeded the budget (the fallback)."""
+
+    def __enter__(self):
+        from celeste_jl_tpu_torch.parallel import run
+
+        self.run, self.dispatch, self.calls = run, run._fused_joint_dispatch, []
+
+        def spy(states, classes, *a, **k):
+            h = self.dispatch(states, classes, *a, **k)
+            self.calls.append((states, classes, h))
+            return h
+
+        run._fused_joint_dispatch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.run._fused_joint_dispatch = self.dispatch
+
+    def multi_field_classes(self):
+        """Of every staged class, how many hold sources of 2+ fields."""
+        n = 0
+        for states, classes, _ in self.calls:
+            offsets = np.cumsum([0] + [len(st.catalog) for st in states])
+            for cls in classes:
+                fields = set(np.searchsorted(offsets, cls, side="right") - 1)
+                n += len(fields) > 1
+        return n
+
+
+def phase_multifield(device="cuda", n_fields=8, n_sources=128, size=512,
+                     seed=7, config=None, newton_config=None, bars=True):
+    """benchmark/run_multifield.py's run at its size of record through the
+    port's runner (celeste_jl_tpu_torch.benchmark.multifield.run_pass):
+    n_fields fields of n_sources on size x size px (field f from seed +
+    1000 f) drawn on the card, detected, and inferred as ONE merged fused
+    schedule by joint_infer_fields, f32 through K1-K3; scored as
+    run_multifield.py scores. Bars: finite ELBOs, 0 failures, completeness
+    and type accuracy (phase 9's), K1-K3 each launched, the fused staging
+    taken (no budget fallback), a class holding sources of two fields.
+    config (default Config()) and newton_config (default NewtonConfig(),
+    the isolated fits') shorten the schedule for a CPU rehearsal, where
+    bars=False skips the quality bars. Returns K1-K3's launches."""
+    import torch
+
+    from celeste_jl_tpu_torch.benchmark import multifield
+    from celeste_jl_tpu_torch.utils import telemetry
+
+    with FusedStagings() as fs, KernelWidths() as kw_rec:
+        out, per_field, _ = multifield.run_pass(
+            n_fields, n_sources, size, seed, device=device,
+            dtype=torch.float32, config=config, newton_config=newton_config)
+    c = telemetry.counters
+    launches = kw_rec.launches()
+    elbos = np.array([r.elbo for res in per_field for r in res])
+    staged = [h for _, _, h in fs.calls]
+    n_multi = fs.multi_field_classes()
+    n_classes = sum(len(cl) for _, cl, _ in fs.calls)
+    stage_s = sum(h["stage_s"] for h in staged if h is not None)
+    sched_s = sum(h.get("schedule_s", 0.0) for h in staged if h is not None)
+    g = lambda k, fmt=".4f": (format(out[k], fmt) if out[k] is not None
+                              else "None")
+    print(f"phase 13: {n_fields} fields x {n_sources} sources, {size}x{size}"
+          f" px: detected {out['n_detected']}, matched {out['n_matched']}, "
+          f"completeness {g('completeness')}, type accuracy "
+          f"{g('type_accuracy')}, median r-flux rel err "
+          f"{g('median_flux_relerr')}", flush=True)
+    print(f"phase 13: {out['fits']} fits, busy {g('device_busy_s', '.3f')} "
+          f"s, summed launch {g('launch_wall_sum_s', '.3f')} s; device "
+          f"{g('value', '.3f')} fits/s, device "
+          f"{g('device_sources_per_sec', '.3f')} sources/s, e2e "
+          f"{g('e2e_sources_per_sec', '.3f')} sources/s; utilization "
+          f"{g('utilization')}, {g('achieved_model_gflops_per_s', '.4f')} "
+          f"model GFLOP/s, MFU {g('mfu', '.6f')}; {out['serial_tr_steps']} "
+          f"serial TR steps, {g('mean_iters_per_fit', '.2f')} iterations a "
+          f"fit, converged {g('converged_frac')}; infer wall "
+          f"{g('infer_wall_s', '.3f')} s, detect wall "
+          f"{g('detect_wall_s', '.3f')} s; failures {c.failures}",
+          flush=True)
+    print(f"phase 13: fused staging {stage_s:.3f} s, schedule {sched_s:.3f}"
+          f" s; {c.launches} fit launches by lane width "
+          f"{dict(sorted(c.lane_widths.items()))}; {n_classes} merged "
+          f"classes, {n_multi} of them with sources of 2+ fields; "
+          f"budget fallbacks {sum(h is None for h in staged)}", flush=True)
+    print(f"phase 13 kernels: {kw_rec.summary()}", flush=True)
+    print("phase 13 json: " + json.dumps(out), flush=True)
+    if bars:
+        check(bool(np.all(np.isfinite(elbos))) and c.failures == 0,
+              f"phase 13: finite ELBOs {bool(np.all(np.isfinite(elbos)))},"
+              f" failures {c.failures}")
+        check(out["completeness"] >= FIELD_COMPLETENESS_BAR
+              and out["type_accuracy"] >= FIELD_TYPE_BAR,
+              f"phase 13: completeness {out['completeness']:.4f} (bar "
+              f"{FIELD_COMPLETENESS_BAR}), type accuracy "
+              f"{out['type_accuracy']:.4f} (bar {FIELD_TYPE_BAR})")
+        check(len(staged) > 0 and all(h is not None for h in staged),
+              f"phase 13: the fused staging was not taken ({len(staged)} "
+              "stagings, a None is the budget fallback)")
+        check(n_multi > 0, "phase 13: no class holds sources of two fields")
+        if device == "cuda":
+            check(all(n > 0 for n in launches.values()),
+                  f"phase 13: a field kernel never launched: {launches}")
+    print("phase 13 ok", flush=True)
+    return launches
+
+
+def _route_diff(label, got, want):
+    """(classification flips, relative ELBO departures) of two result
+    lists of the same sources (the first run against the second); prints
+    each departing source: its star flags, ELBO departure and converged
+    flags in both runs."""
+    from celeste_jl_tpu_torch.models.params import ids
+
+    check(len(got) == len(want) and all(
+        np.array_equal(a.init_pos, b.init_pos) for a, b in zip(got, want)),
+        f"{label}: the two runs hold different sources")
+    sg = np.array([r.vs[ids.is_star[0]] > 0.5 for r in got])
+    sw = np.array([r.vs[ids.is_star[0]] > 0.5 for r in want])
+    eg = np.array([r.elbo for r in got])
+    ew = np.array([r.elbo for r in want])
+    rel = (eg - ew) / np.abs(ew)
+    for i in np.nonzero((sg != sw) | (rel != 0.0))[0]:
+        print(f"{label}: source {i} at {got[i].init_pos}: star {sg[i]} / "
+              f"{sw[i]}, ELBO {eg[i]:.6f} / {ew[i]:.6f} (rel {rel[i]:.3g}), "
+              f"converged {got[i].converged} / {want[i].converged}",
+              flush=True)
+    check(bool(np.all(np.isfinite(eg))), f"{label}: a non-finite ELBO")
+    return int(np.sum(sg != sw)), rel
+
+
+def _multifield_route(item, device, n_sources, size, seeds, config,
+                      newton_config, bars):
+    """Check `item` (1-3) of phase 14 on the two fields (see
+    phase_multifield_routes), in its own process: returns its line, or
+    raises PhaseError. Item "4 pipelined" and "4 per group" return (their
+    line, their results), which the caller compares."""
+    import torch
+
+    from celeste_jl_tpu_torch.benchmark.multifield import build_field
+    from celeste_jl_tpu_torch.ops.newton import NewtonConfig
+    from celeste_jl_tpu_torch.parallel.run import (
+        joint_infer_fields, joint_infer_fields_pipelined, one_node_joint_infer)
+    from celeste_jl_tpu_torch.utils.config import Config
+
+    # one intra-op thread: four processes share the host's cores (their
+    # host work is dispatch; more threads only spin against each other)
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    kw = dict(config=config or Config(),
+              newton_config=newton_config or NewtonConfig(), device=device,
+              dtype=torch.float64)
+    fields = [build_field(s, n_sources, size, device)[0] for s in seeds]
+    label = f"phase 14 ({item})"
+    if item in (1, 2):
+        with KernelWidths() as kw_rec:
+            rk = joint_infer_fields(fields, **kw)
+    if item == 1:
+        rp = joint_infer_fields(fields, plain=True, **kw)
+        flips, rel = _route_diff(label, sum(rk, []), sum(rp, []))
+        msg = (f"{label}: {len(fields)} fields, {sum(map(len, rk))} "
+               f"sources f64, kernels vs plain twins: {flips} flips; ELBO "
+               f"rel worst {rel.min():.3g}, best {rel.max():.3g}; "
+               f"{kw_rec.summary()}; bar: 0 flips, worst > "
+               f"-{SLICE_ELBO_TOL:g}")
+        check(flips == 0 and bool(np.all(rel > -SLICE_ELBO_TOL)), msg)
+        if device == "cuda":
+            check(all(n > 0 for n in kw_rec.launches().values()),
+                  f"{label}: a field kernel never launched: "
+                  f"{kw_rec.launches()}")
+    elif item == 2:
+        alone = [one_node_joint_infer(f["catalog"], f["images"],
+                                      active_boxes=f["active_boxes"], **kw)
+                 for f in fields]
+        flips, rel = _route_diff(label, sum(rk, []), sum(alone, []))
+        msg = (f"{label}: merged vs each field alone: {flips} flips; ELBO "
+               f"rel worst {rel.min():.3g}, best {rel.max():.3g}; bar: 0 "
+               "flips")
+        check(flips == 0 or not bars, msg)
+    elif item == 3:
+        import shutil
+        import tempfile
+
+        f0 = fields[0]
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix="ckpt-", dir=os.path.join(ROOT, "build"))
+        try:
+            # a checkpoint_path selects the host-driven loop
+            a, b = (one_node_joint_infer(
+                f0["catalog"], f0["images"], active_boxes=f0["active_boxes"],
+                fused=False, **kw, **k)
+                for k in ({}, dict(checkpoint_path=os.path.join(
+                    tmp, "joint.npz"))))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        dvs = max(float(np.max(np.abs(x.vs - y.vs))) for x, y in zip(a, b))
+        msg = (f"{label}: one field ({len(a)} sources) over the host "
+               f"schedule's classes (fused=False), the fused schedule vs the "
+               f"host-driven loop: max |vs| difference {dvs:.3g}; bar: 1e-8")
+        check(dvs < 1e-8, msg)
+    elif item == "4 pipelined":
+        built, out = [], []
+
+        def lazy():
+            for s in seeds:
+                built.append(s)
+                yield [build_field(s, n_sources, size, device)[0]]
+
+        for res in joint_infer_fields_pipelined(lazy(), **kw):
+            out.append(res)
+            check(len(built) >= min(len(out) + 1, len(seeds)),
+                  f"{label}: group {len(out)} was yielded before the "
+                  "next group was pulled")
+        msg = f"{label}: {len(out)} lazy one-field groups"
+    else:
+        out = [joint_infer_fields([f], **kw) for f in fields]
+        msg = f"{label}: joint_infer_fields on each field"
+    msg = f"{msg}; {time.perf_counter() - t0:.3f} s"
+    return (msg, out) if item in ("4 pipelined", "4 per group") else msg
+
+
+MULTIFIELD_ROUTE_ITEMS = (1, 2, 3, "4 pipelined", "4 per group")
+
+
+def _submit_multifield_routes(pool, device="cuda", n_sources=8, size=128,
+                              seeds=(7, 1007), config=None,
+                              newton_config=None, bars=True):
+    """Phase 14's checks, each (and each side of (4)) submitted to `pool`."""
+    args = (device, n_sources, size, seeds, config, newton_config, bars)
+    return [pool.submit(_multifield_route, item, *args)
+            for item in MULTIFIELD_ROUTE_ITEMS]
+
+
+def _check_multifield_routes(pending, n_groups):
+    """Phase 14's lines and its pipeline bar (see phase_multifield_routes)."""
+    for p in pending[:3]:
+        print(p.result(), flush=True)
+    (m1, piped), (m2, seq) = (p.result() for p in pending[3:])
+    same = all(np.array_equal(x.vs, y.vs) and x.elbo == y.elbo
+               for p, q in zip(piped, seq) for x, y in zip(p[0], q[0]))
+    msg = (f"phase 14 (4): pipelined ({m1}) vs per group ({m2}): bit for "
+           f"bit {same}")
+    check(len(piped) == len(seq) == n_groups and same, msg)
+    print(msg, flush=True)
+    print("phase 14 ok", flush=True)
+
+
+def phase_multifield_routes(device="cuda", n_sources=8, size=128,
+                            seeds=(7, 1007), config=None,
+                            newton_config=None, bars=True):
+    """The multi-field path's routes, f64, on two fields at phase 10's
+    density (run_multifield.py's generator): (1) joint_infer_fields
+    through the kernels and through plain=True: 0 flips, no ELBO worse
+    than 1e-4 relative; (2) the merged result against each field's own
+    one_node_joint_infer: 0 flips, the worst ELBO departure printed (the
+    merge changes the isolated launches' widths, so no bit equality on
+    the card); (3) the first field over the host schedule's classes
+    (fused=False) through the fused schedule against the host-driven loop
+    that a checkpoint_path selects: every vs within 1e-8
+    (tests/test_infer.py:121-124); (4) joint_infer_fields_pipelined over
+    lazy one-field groups against joint_infer_fields on each group: bit
+    for bit, the generator a group ahead of the consumer. The checks are
+    independent and host-bound, so each (and each side of (4)) runs in a
+    process of its own, all at once (main runs them beside phase 10's,
+    phase_routes). config and newton_config (defaults Config(),
+    NewtonConfig()) shorten the schedules for a CPU rehearsal, where
+    bars=False skips (2)'s bar: a schedule cut short leaves its fits far
+    from their optima, so two class orders part there."""
+    with _route_pool(len(MULTIFIELD_ROUTE_ITEMS)) as pool:
+        _check_multifield_routes(_submit_multifield_routes(
+            pool, device, n_sources, size, seeds, config, newton_config,
+            bars), len(seeds))
+
+
+def phase_routes(device="cuda", field=None, multi=None):
+    """Phases 10 and 14 at once, each run in a process of its own (seven):
+    both are host-bound f64 route checks, so side by side they take about
+    phase 14's longest check. field: phase_field_routes' keyword arguments
+    (defaults: 16 sources on 181 x 181 px, seed 7); multi:
+    phase_multifield_routes' (defaults: two 8-source fields on 128 x 128
+    px, seeds 7 and 1007)."""
+    field, multi = dict(field or {}), dict(multi or {})
+    with _route_pool(2 + len(MULTIFIELD_ROUTE_ITEMS)) as pool:
+        f10 = _submit_field_routes(pool, device, **field)
+        f14 = _submit_multifield_routes(pool, device, **multi)
+        _check_field_routes(f10, device)
+        _check_multifield_routes(f14, len(multi.get("seeds", (7, 1007))))
+
+
+def _joint_turn(kind, joint, tmp):
+    """one_node_joint_infer for a turn of schedule_turns: "fused" (the
+    default classes), "host" (fused=False: the host schedule's classes,
+    the same engine) or "loop" (those classes through the host-driven loop,
+    which a fresh checkpoint_path selects)."""
+    def infer(*a, **k):
+        k["fused"] = kind == "fused"
+        if kind == "loop":
+            path = os.path.join(tmp, "joint.npz")
+            if os.path.exists(path):
+                os.remove(path)
+            k["checkpoint_path"] = path
+        return joint(*a, **k)
+
+    return infer
+
+
+def schedule_turns(order=("loop", "host", "fused", "fused", "host", "loop"),
+                   phases=(9,), device="cuda", n_sources=256, size=724):
+    """Phase 9's joint run (and phase 11 if asked) in turns in one process
+    (phase 9's field: n_sources on size x size px, seed 7),
+    each turn with the joint schedule of its kind (see _joint_turn), so
+    that the schedules compare on one card:
+
+        python3 -c 'import chip_smoke as c; c.phase_setup();
+                    c.schedule_turns()'
+
+    Each turn prints its phase lines (infer seconds, sources/s, the
+    scores, launches) after a "turn N: <kind>" line."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from celeste_jl_tpu_torch.parallel import run
+    from celeste_jl_tpu_torch.utils.config import Config
+
+    images, truth = field_scene(n_sources, size, 7, device)
+    joint = run.one_node_joint_infer
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="turns-", dir=os.path.join(ROOT, "build"))
+    try:
+        for i, kind in enumerate(order):
+            print(f"turn {i}: {kind}", flush=True)
+            run.one_node_joint_infer = _joint_turn(kind, joint, tmp)
+            if 9 in phases:
+                t0 = time.perf_counter()
+                field_run(images, truth, "joint_vi", device, torch.float32,
+                          f"turn {i} ({kind}) phase 9", True,
+                          config=Config(), thresh=6.0, boxsize=(size, size),
+                          match_radius_deg=1.0)
+                _phase_clock(9, t0)
+            if 11 in phases:
+                t0 = time.perf_counter()
+                phase_app(device=device)
+                _phase_clock(11, t0)
+    finally:
+        run.one_node_joint_infer = joint
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _app_route(plain, fused, device, size, n_sources, seed, config=None):
+    """One run of phase 12's infer_box routes, in a process of its own:
+    the SDSS field written and loaded, then infer_box(joint_vi) in f64
+    through the kernels or their twins (plain), over the default classes
+    or the host schedule's (fused=False). Returns (the results, the
+    infer_box seconds)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from celeste_jl_tpu_torch.io.sdss import RunCamcolField, SDSSDataSet
+    from celeste_jl_tpu_torch.parallel.run import infer_box
+    from celeste_jl_tpu_torch.utils.config import Config
+
+    torch.set_num_threads(1)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="witness-", dir=os.path.join(ROOT, "build"))
+    try:
+        base = os.path.join(tmp, "sdss")
+        write_sdss_field(base, size, size, n_sources, seed, device)
+        images = SDSSDataSet(base, device=device).load_field_images(
+            RunCamcolField(*SDSS_RCF))
+        t0 = time.perf_counter()
+        res = infer_box(images, method="joint_vi", config=config or Config(),
+                        device=device, dtype=torch.float64, thresh=6.0,
+                        boxsize=(size, size), plain=plain, fused=fused)
+        return res, time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def app_route_witness(device="cuda", size=222, n_sources=24,
+                      seeds=(7, 8, 9)):
+    """Phase 12's infer_box routes on SDSS fields of n_sources on size x
+    size px, f64, to tell a basin change from a fault when kernels and
+    twins part: on seeds[0], kernels and twins over both class
+    partitions (the default fused_color_classes, and the host schedule's
+    with fused=False); on the other seeds, kernels and twins over the
+    default. Each run in a process of its own, all at once; each
+    comparison printed with its departures and phase 12's bar (0 flips,
+    no ELBO worse than 1e-4 relative) met or not. Diagnostic, not a
+    phase:
+
+        python3 -c 'import chip_smoke as c; c.phase_setup();
+                    c.app_route_witness()'
+    """
+    runs = ([(seeds[0], plain, fused) for fused in (True, False)
+             for plain in (False, True)]
+            + [(seed, plain, True) for seed in seeds[1:]
+               for plain in (False, True)])
+    with _route_pool(len(runs)) as pool:
+        pending = {r: pool.submit(_app_route, r[1], r[2], device, size,
+                                  n_sources, r[0]) for r in runs}
+        res = {r: p.result()[0] for r, p in pending.items()}
+    name = lambda plain, fused: (("twins" if plain else "kernels") + ", "
+                                 + ("default" if fused else "host")
+                                 + " classes")
+    pairs = ([((seeds[0], False, f), (seeds[0], True, f)) for f in (True,
+                                                                   False)]
+             + [((seeds[0], p, True), (seeds[0], p, False))
+                for p in (True, False)]
+             + [((seed, False, True), (seed, True, True))
+                for seed in seeds[1:]])
+    for a, b in pairs:
+        label = (f"witness seed {a[0]}: {name(*a[1:])} vs {name(*b[1:])}")
+        flips, rel = _route_diff(label, res[a], res[b])
+        met = flips == 0 and bool(np.all(rel > -SLICE_ELBO_TOL))
+        print(f"{label}: {len(res[a])} sources, {flips} flips; ELBO rel "
+              f"worst {rel.min():.3g}, best {rel.max():.3g}; phase 12's "
+              f"bar {'met' if met else 'missed'}", flush=True)
 
 
 SOURCES = {
@@ -2005,14 +2438,17 @@ def main():
         field = phase_field(rec=rec)
         _phase_clock(9, t0)
         t0 = time.perf_counter()
-        phase_field_routes()
-        _phase_clock(10, t0)
-        t0 = time.perf_counter()
         app = phase_app(rec=rec)
         _phase_clock(11, t0)
         t0 = time.perf_counter()
         phase_app_routes()
         _phase_clock(12, t0)
+        t0 = time.perf_counter()
+        multi = phase_multifield()
+        _phase_clock(13, t0)
+        t0 = time.perf_counter()
+        phase_routes()
+        _phase_clock("10 and 14", t0)
     except PhaseError as e:
         print(f"FAILED: {e}", flush=True)
         return 1
@@ -2020,7 +2456,7 @@ def main():
         dict(name=k, route="cuda", source=SOURCES[k][0],
              replaces=SOURCES[k][1], launches=launches[k],
              field_launches=field.get(k, 0), app_launches=app.get(k, 0),
-             **rec[k])
+             multifield_launches=multi.get(k, 0), **rec[k])
         for k in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

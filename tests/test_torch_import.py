@@ -66,6 +66,7 @@ def test_port_modules_import_without_jax():
               "io.decals", "detection._native", "detection.background",
               "detection.extract", "detection.detect", "models.psf_fit",
               "parallel.partition", "parallel.packing", "parallel.run",
+              "parallel.fused", "utils.flops", "benchmark.multifield",
               "vi.stochastic", "main"):
         assert f"celeste_jl_tpu_torch.{m}'" in proc.stdout, m
     proc = _run(["-c", _RUN_MAIN], ROOT)
@@ -171,3 +172,34 @@ def test_chip_smoke_app_phases_run_on_cpu_twins():
     tiny = Config(num_joint_vi_iters=1, joint_step_refreshes=2,
                   polish_refreshes=2, polish_sweeps=1, probe_refreshes=2)
     cs.phase_app_routes(device="cpu", size=64, n_sources=3, config=tiny)
+
+
+def test_chip_smoke_multifield_phases_run_on_cpu_twins():
+    """Phases 13-14 of chip_smoke.py (the multi-field fused schedule) on
+    two 48 x 48 fields of 6 sources on the CPU, the schedules cut to a
+    refresh a step: the runner, the staging spy, the class count across
+    fields and the route comparisons, not the kernels; phase 14 beside
+    phase 10 (4 sources on 48 x 48), as main runs them."""
+    import chip_smoke as cs
+    from celeste_jl_tpu_torch.ops.newton import NewtonConfig
+    from celeste_jl_tpu_torch.utils.config import Config
+
+    short = Config(num_joint_vi_iters=1, joint_step_refreshes=1,
+                   polish_refreshes=1, polish_sweeps=1, probe_refreshes=1)
+    newton = NewtonConfig(max_iters=1, hess_every=2)
+    with cs.FusedStagings() as fs:
+        launches = cs.phase_multifield(device="cpu", n_fields=2,
+                                       n_sources=6, size=48, config=short,
+                                       newton_config=newton, bars=False)
+    assert launches == {k: 0 for k in cs.FIELD_KERNELS}
+    # the phase's own spy nests inside this one: one merged staging,
+    # with classes that hold sources of both fields
+    (states, classes, handle), = fs.calls
+    assert len(states) == 2 and handle is not None
+    assert fs.multi_field_classes() > 0
+    assert handle["schedule_s"] > 0 and handle["stage_s"] > 0
+    # phase 14 as main runs it, in one pool with phase 10's two runs
+    cs.phase_routes(device="cpu",
+                    field=dict(n_sources=4, size=48, config=short),
+                    multi=dict(n_sources=6, size=48, config=short,
+                               newton_config=newton, bars=False))

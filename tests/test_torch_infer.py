@@ -10,10 +10,12 @@ tests/test_infer.py's three-overlapping-sources scene.
 - source_moment_grids, _render_neighbor_bg, _elbo_values: 1e-10 relative;
 - the newton-secular TR solve on random eigenbases with hard-case lanes:
   1e-10;
-- infer_box(joint_vi) on the port: test_infer.py's known-answer bars, and
-  against JAX's host-driven schedule (CELESTE_FUSED=0) on the same images
-  and catalog: the same classifications, ELBOs within 1e-4 relative (the
-  fit bar of ROADMAP; f64 ridge lanes rule out bit-equality, queue 3).
+- infer_box(joint_vi) over the port's host-schedule classes
+  (fused=False): test_infer.py's known-answer bars, and against JAX's
+  host-driven schedule (CELESTE_FUSED=0) on the same images and catalog:
+  the same classifications, ELBOs within 1e-4 relative (the fit bar of
+  ROADMAP; f64 ridge lanes rule out bit-equality, queue 3). The fused
+  default is held to JAX's in tests/test_torch_fused.py.
 """
 
 import jax
@@ -336,7 +338,9 @@ def test_telemetry_counts_a_single_infer_run(scene):
     assert dict(c.lane_widths) == {2: 1}
     assert c.newton_iters > 2 and c.pixel_visits > 0 and c.failures == 0
     assert c.utilization() < 1.0 and c.busy_s() > 0
-    assert c.model_flops == 0.0
+    # the real lanes' work in model FLOPs, the JAX package's model
+    assert c.model_flops > 0 and c.serial_steps == 0
+    assert c.mfu("cpu")[1] is None
 
 
 def test_cyclades_schedule_resumes_from_its_checkpoint(scene, tmp_path):
@@ -387,7 +391,8 @@ def test_infer_box_rejects_unported_methods(scene, monkeypatch):
 @pytest.fixture(scope="module")
 def jax_host_run(scene):
     """tests/test_infer.py's host-schedule run: JAX one_node_joint_infer on
-    the true catalog with CELESTE_FUSED=0, the schedule the port has."""
+    the true catalog with CELESTE_FUSED=0, the schedule (classes, order,
+    acceptance) the port runs with fused=False."""
     images, truth = scene[:2]
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("CELESTE_FUSED", "0")
@@ -401,7 +406,8 @@ def _r_flux(vp, star):
 
 
 def test_infer_box_joint_vi_matches_jax(scene, jax_host_run):
-    """infer_box on the true catalog: the fit the JAX run makes (on this
+    """infer_box on the true catalog over the host schedule's classes
+    (fused=False): the fit the JAX run makes (on this
     scene the capped sweep, probe and polish budgets are below both
     max_iters, so NewtonConfig() and test_infer.py's max_iters=30 run the
     same schedule). Detection's part is held to JAX by the tests above; with
@@ -409,7 +415,7 @@ def test_infer_box_joint_vi_matches_jax(scene, jax_host_run):
     stars galaxies, so the type bar is a true-catalog bar."""
     _, truth, p_images, p_truth = scene
     results = infer_box(p_images, method="joint_vi", catalog=p_truth,
-                        config=CFG, **F64)
+                        config=CFG, fused=False, **F64)
     # tests/test_infer.py's known answers
     assert len(results) == 3
     for res, ce in zip(results, truth):

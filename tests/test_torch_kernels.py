@@ -643,3 +643,31 @@ def test_psf_fits_run_k3_not_its_twin(cuda, monkeypatch):
     assert np.all(np.isfinite(errs))
     np.testing.assert_allclose(got, plain, rtol=0,
                                atol=1e-9 * np.abs(plain).max())
+
+
+def test_fused_schedule_is_deterministic(cuda, monkeypatch):
+    """The fused joint schedule (joint_infer_fields) run twice on chip_smoke
+    phase 14's first field (8 sources on 128 x 128 px, seed 7) under
+    torch.use_deterministic_algorithms gives the same bits, through the
+    kernels."""
+    from celeste_jl_tpu_torch.benchmark.multifield import build_field
+    from celeste_jl_tpu_torch.parallel.run import joint_infer_fields
+    from celeste_jl_tpu_torch.utils import telemetry
+
+    # cuBLAS's deterministic workspace, asked for by the deterministic mode
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    field = build_field(7, 8, 128, device=cuda)[0]
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            k1 = refresh.pixel_terms.launches
+            runs.append(joint_infer_fields([field], device=cuda)[0])
+            assert telemetry.counters.serial_steps > 0   # the fused path
+            assert refresh.pixel_terms.launches > k1
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert runs[0]
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a.vs, b.vs)
+        assert a.elbo == b.elbo and a.converged == b.converged
