@@ -26,8 +26,10 @@ class PriorParams:
     gal_radius_px_var: float
 
 
-def load_prior() -> PriorParams:
-    d = np.load(_DATA)
+def load_prior(path=_DATA) -> PriorParams:
+    """The priors of the .npz at `path` (default the shipped
+    data/priors.npz; models/fit_priors.save_prior writes the schema)."""
+    d = np.load(path)
     k = np.stack([d["star_prior_weights"], d["gal_prior_weights"]], axis=1)
     color_mean = np.stack([d["star_prior_means"], d["gal_prior_means"]], axis=2)
     color_cov = np.stack([d["star_prior_covs"], d["gal_prior_covs"]], axis=3)

@@ -130,7 +130,11 @@ def tr_subproblem(gq, w, delta, bisect_iters=48):
         _build.launch("tr_subproblem", dtype, gq, w, delta, p, pred, B, D,
                       bisect_iters)
         tr_subproblem.launches += 1
+        tr_subproblem.launches_by_dim[D] = (
+            tr_subproblem.launches_by_dim.get(D, 0) + 1)
     return p, pred
 
 
 tr_subproblem.launches = 0
+# the launches by D: the source fits' D = 42, the PSF fits' D = 12
+tr_subproblem.launches_by_dim = {}

@@ -1,7 +1,7 @@
 """Synthetic scenes for benchmarks and smoke runs (port of
-celeste_jl_tpu/synthetic.py: synthetic_patch_batch, make_blank_images,
-sample_star, sample_galaxy, gen_images_fast; ais_bench_scene is the scene
-of benchmark/bench_mcmc.py).
+celeste_jl_tpu/synthetic.py: render_source_nmgy, gen_image, gen_images,
+synthetic_patch_batch, make_blank_images, sample_star, sample_galaxy,
+gen_images_fast; ais_bench_scene is the scene of benchmark/bench_mcmc.py).
 
 The truth and the Poisson noise are drawn from numpy's default_rng(seed)
 in the JAX package's order, so both packages make the same scene; the
@@ -13,9 +13,76 @@ import torch
 
 from .models.fsm import galaxy_density_grid, star_density_grid
 from .models.image import CatalogEntry, Image
-from .models.patches import SkyPatch, make_patches_batched
+from .models.patches import (SkyPatch, make_patch_for_source,
+                             make_patches_batched)
 from .models.psf import gaussian_psf
+from .utils.device import resolve
 from .vi.init import generic_init_source
+
+
+def render_source_nmgy(img: Image, ce: CatalogEntry, tile_size=None,
+                       radius=25, *, device="cuda"):
+    """Expected nMgy image contribution of one source (whole image), a
+    float64 numpy (H, W) array: the source's unit-flux tile (P = tile_size,
+    default 2 radius + 8) rendered in f64 on `device` with the model's own
+    density grids, times its flux, scattered into the image."""
+    dev = resolve(device)
+    H, W = img.H, img.W
+    P = tile_size or int(2 * radius + 8)
+    patch = make_patch_for_source([img], ce.pos, radius, P)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a[0]), device=dev)
+    args = (t(patch.psf), t(patch.wcs_jacobian), t(patch.world_center),
+            t(patch.pixel_center), t(patch.offset), P)
+    pos = torch.as_tensor(np.asarray(ce.pos, np.float64), device=dev)
+    if ce.is_star:
+        dens = star_density_grid(pos, *args)
+        flux = ce.star_fluxes[img.band]
+    else:
+        shape = [torch.tensor(float(v), dtype=torch.float64, device=dev)
+                 for v in (ce.gal_frac_dev, ce.gal_axis_ratio, ce.gal_angle,
+                           ce.gal_radius_px)]
+        dens = galaxy_density_grid(pos, *shape, *args)
+        flux = ce.gal_fluxes[img.band]
+    tile = dens.cpu().numpy() * float(flux)
+
+    out = np.zeros((H, W))
+    off = np.asarray(patch.offset[0])
+    i0, i1 = max(0, off[0]), min(H, off[0] + P)
+    j0, j1 = max(0, off[1]), min(W, off[1] + P)
+    if i0 < i1 and j0 < j1:
+        out[i0:i1, j0:j1] = tile[i0 - off[0]:i1 - off[0],
+                                 j0 - off[1]:j1 - off[1]]
+    return out
+
+
+def gen_image(img: Image, bodies, expectation=False, rng=None, *,
+              device="cuda"):
+    """Overwrite img.pixels with a synthetic render of `bodies`: each
+    source's render_source_nmgy on `device`, the sky added, Poisson counts
+    drawn from `rng` (default numpy's default_rng(42)), as the JAX
+    package draws them."""
+    rng = rng or np.random.default_rng(42)
+    s = img.sky
+    nmgy = (np.array(s, dtype=np.float64) * np.ones((img.H, img.W))
+            if np.ndim(s) != 2 else np.array(s, dtype=np.float64))
+    for ce in bodies:
+        nmgy += render_source_nmgy(img, ce, device=device)
+    io_ = img.nelec_per_nmgy
+    electrons = nmgy * (np.asarray(io_)[:, None] if np.ndim(io_) == 1 else io_)
+    img.pixels = electrons if expectation else rng.poisson(
+        electrons).astype(np.float64)
+    return img
+
+
+def gen_images(images, bodies, expectation=False, seed=42, *,
+               device="cuda"):
+    """gen_image on each image in turn, all drawing from one
+    default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    for img in images:
+        gen_image(img, bodies, expectation=expectation, rng=rng,
+                  device=device)
+    return images
 
 
 def flux_from_colors(r_flux, colors):

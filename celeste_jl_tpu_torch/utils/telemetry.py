@@ -111,6 +111,29 @@ def now():
     return time.perf_counter()
 
 
+def fit_kernel_launches(reset=False):
+    """{name: launches} of the fit's kernels (K1 refresh, K2 Jacobi sweep,
+    K3 TR subproblem) since their counters were last set to 0; reset=True
+    sets them to 0 first (and K3's launches by D)."""
+    from ..ops import eigh, refresh, tr
+
+    fns = {"refresh": refresh.pixel_terms, "jacobi_sweep": eigh.jacobi_sweep,
+           "tr_subproblem": tr.tr_subproblem}
+    if reset:
+        tr.tr_subproblem.launches_by_dim = {}
+        for fn in fns.values():
+            fn.launches = 0
+    return {k: fn.launches for k, fn in fns.items()}
+
+
+def tr_launches_by_dim():
+    """{D: launches} of K3 since fit_kernel_launches(reset=True): D = 12
+    are the PSF fits' (models/psf_fit), the source fits' D = 42."""
+    from ..ops import tr
+
+    return dict(tr.tr_subproblem.launches_by_dim)
+
+
 def record_launch_wall(t0, label=""):
     """Account one batched launch spanning dispatch -> results on the host.
     Set CELESTE_LOG_LAUNCHES=1 to log each launch."""

@@ -140,8 +140,17 @@ def fit_sources(vp0s, patches, bg_E_G=None, bg_var_G=None, include_kl=True,
 
 def _fit(vp0s, patches, bg_E_G, bg_var_G, include_kl, config, delta0,
          bounds_pos, free0, converged0, loc_width, loc_scale, plain):
-    pos = vp0s[:, 0:2] if bounds_pos is None else bounds_pos
-    bounds = _make_bounds(pos.to(vp0s.dtype), loc_width, loc_scale)
+    # Fit in world coordinates relative to each lane's position-box center:
+    # the box is 2 loc_width wide (2e-4), float32's spacing is 1.2e-4 at
+    # 1024 and 2.4e-4 at 2048, where the box would hold one or two
+    # positions. Subtracting the origin from the patch's world
+    # center and from vp0 is exact; the free vector does not depend on it.
+    origin = (vp0s[:, 0:2] if bounds_pos is None else bounds_pos).to(
+        vp0s.dtype)
+    vp0s = torch.cat([vp0s[:, 0:2] - origin, vp0s[:, 2:]], dim=-1)
+    patches = patches._replace(
+        world_center=patches.world_center - origin[:, None, :])
+    bounds = _make_bounds(torch.zeros_like(origin), loc_width, loc_scale)
     if free0 is None:
         free0 = to_free(enforce(vp0s, bounds), bounds)
     prior = default_prior(vp0s.device, vp0s.dtype)
@@ -177,7 +186,9 @@ def _fit(vp0s, patches, bg_E_G, bg_var_G, include_kl, config, delta0,
 
     st = minimize_newton_tr(fgh, free0, config, fg=fg, delta0=delta0,
                             converged0=converged0, plain=plain)
-    return FitResult(vp=to_bound(st.x, bounds), elbo=-st.f, iters=st.iters,
+    vp = to_bound(st.x, bounds)
+    vp = torch.cat([vp[:, 0:2] + origin, vp[:, 2:]], dim=-1)
+    return FitResult(vp=vp, elbo=-st.f, iters=st.iters,
                      f_calls=st.f_calls, converged=st.converged,
                      delta=st.delta, free=st.x)
 

@@ -48,7 +48,7 @@ Phases, one line each; the first failure exits non-zero:
      False) against the fused one, f64, 256 sources: no flip, the same
      iterations per lane, ELBOs within 1e-9 relative;
   9. one sky box end to end: benchmark/run_field.py's field at its density
-     of record cut to 256 sources on 724 x 724 px (its record is 512 on
+     of record cut to 128 sources on 512 x 512 px (its record is 512 on
      1024 x 1024; phase 13 carries that density at 1024 sources), seed 7,
      drawn on the card, then
      infer_box(joint_vi): detection (native labelling) and the joint
@@ -114,11 +114,32 @@ Phases, one line each; the first failure exits non-zero:
      joint_infer_fields_pipelined over lazy one-field groups
      against joint_infer_fields per group (bit for bit, the generator a
      group ahead).
-Each phase prints its wall time; phases 10 and 14 run together after
-13 and print one. The line before the last is the kernels'
+ 15. the GalSim suite's CI subset (benchmark/galsim.CI_CASES: five 96 x 96
+     px scenes, radius 40) through the port's runner
+     (benchmark/galsim_suite.run_suite), joint, f64, then the noise-free
+     rerun of its two noisy scenes; each scene's estimates printed beside
+     the JAX package's artifact row (benchmark/galsim_results.csv). Bars:
+     0 noise-free violations, no star/galaxy misclassification, finite
+     ELBOs, K1-K3 launched. It runs in a process of its own beside
+     phases 10 and 14;
+ 16. the farm worker (python -m celeste_jl_tpu_torch.worker's main, f64,
+     pipelined) on phase 11's SDSS files (kept under build/ until then),
+     its box split 2 x 2, two boxes a group; then the same command in a
+     process of its own on the same workdir (the resume). Prints
+     sources/s and each group's load, detect and infer seconds. Bars:
+     every box saved, each of phase 11's targets in exactly one box's
+     file, completeness >= 0.95 and type accuracy >= 0.90 over the union,
+     0 failures, the resume completing 0 boxes, K1-K3 and K3 at D = 12
+     (the PSF fits, field-center and per-source, from the worker's
+     report) launched. It runs in a process of its own beside phases 10,
+     14 and 15.
+Each phase prints its wall time; phases 10, 14, 15 and 16 run together
+after 13 and print one. The line before the last is the kernels'
 JSON record (each kernel's launches counted on its path: phase 3 for K1-K3,
 6 for K4, 8 for K2a/K2b, `field_launches` on phase 9's joint run,
-`app_launches` on phase 11's and `multifield_launches` on phase 13's; its
+`app_launches` on phase 11's, `multifield_launches` on phase 13's,
+`galsim_launches` on phase 15's and `farm_launches` on phase 16's worker
+run; its
 bound from this run's shapes at the H100's published f32 and memory
 peaks); the last line is {"ok": true, "device": {...}}. The app's files go
 to a directory under build/, removed at the end. Imports nothing of JAX.
@@ -1297,11 +1318,11 @@ def _native_available():
     return _native.available()
 
 
-def phase_field(device="cuda", n_sources=256, size=724, seed=7, rec=None,
+def phase_field(device="cuda", n_sources=128, size=512, seed=7, rec=None,
                 config=None, single_newton=None, bars=True):
     """benchmark/run_field.py's field at its density of record (its record,
-    512 sources on 1024 x 1024 px, cut to 256 on 724 x 724 to keep the
-    whole script's phase walls under 750 s) through the
+    512 sources on 1024 x 1024 px, cut to 128 on 512 x 512 to keep the
+    whole script's phase walls near 750 s with phases 15 and 16) through the
     port's infer_box (detection, then joint_vi's schedule, fused by default),
     f32, scored as run_field.py scores it; then single_vi on the same
     images, detected catalog and footprints. With `rec`, K1-K3 are timed
@@ -1748,7 +1769,7 @@ def k3_at_psf_shape(S, device):
 
 
 def phase_app(device="cuda", H=2048, W=1489, n_sources=400, seed=11,
-              method="joint_vi", rec=None, bars=True):
+              method="joint_vi", rec=None, bars=True, field=None):
     """The survey app at full width: one SDSS field (H x W px, 5 bands,
     n_sources, a spatially varying psField PSF) written to FITS files, then
     main(["sdss", <the frame less a 20 px margin>, "--config", yml,
@@ -1762,7 +1783,11 @@ def phase_app(device="cuda", H=2048, W=1489, n_sources=400, seed=11,
     every ELBO finite, 0 failures, completeness >= 0.95 and type accuracy
     >= 0.90, K1-K3 each launched and K3 by the PSF fits, the fitted r-band
     local PSF widths spanning >= 10 % across the targets, and every target
-    of the box in the .npz. Returns the run's launches."""
+    of the box in the .npz. Returns the run's launches.
+    field: a dict that, when given, receives the field (its directory
+    under build/, which is then kept for the caller to remove, the SDSS
+    basedir, the box, the truth, the WCS and the run's targets) for phase
+    16."""
     import shutil
     import tempfile
 
@@ -1773,6 +1798,7 @@ def phase_app(device="cuda", H=2048, W=1489, n_sources=400, seed=11,
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="app-", dir=os.path.join(ROOT, "build"))
+    keep = field is not None
     try:
         t0 = time.perf_counter()
         base = os.path.join(tmp, "sdss")
@@ -1787,11 +1813,18 @@ def phase_app(device="cuda", H=2048, W=1489, n_sources=400, seed=11,
                    "--detect-thresh", "6", "--outdir", outdir])
         r = app_run(argv, device, "phase 11")
         results = app_results(outdir)
+    except BaseException:
+        keep = False
+        raise
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(tmp, ignore_errors=True)
     c = r["counters"]
     targets = [ce for ce in r.get("catalog", [])
                if BoundingBox(*box).contains(*ce.pos)]
+    if keep:
+        field.update(dir=tmp, base=base, box=box, truth=truth, wcs=wcs,
+                     targets=targets)
     n_match, acc, errs = app_score(results, truth, wcs)
     completeness = n_match / len(truth)
     med = float(np.median(errs)) if errs else float("nan")
@@ -2240,19 +2273,39 @@ def phase_multifield_routes(device="cuda", n_sources=8, size=128,
             bars), len(seeds))
 
 
-def phase_routes(device="cuda", field=None, multi=None):
-    """Phases 10 and 14 at once, each run in a process of its own (seven):
-    both are host-bound f64 route checks, so side by side they take about
-    phase 14's longest check. field: phase_field_routes' keyword arguments
+def _one_thread(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with one intra-op thread: a route process's."""
+    import torch
+
+    torch.set_num_threads(1)
+    return fn(*args, **kwargs)
+
+
+def phase_routes(device="cuda", field=None, multi=None, galsim=None,
+                 farm=None):
+    """Phases 10 and 14 at once, each run in a process of its own (seven),
+    and phases 15 and 16 beside them when `galsim` and `farm` are given:
+    all are host-bound f64 runs, so side by side they take about the
+    longest of them. field: phase_field_routes' keyword arguments
     (defaults: 16 sources on 181 x 181 px, seed 7); multi:
     phase_multifield_routes' (defaults: two 8-source fields on 128 x 128
-    px, seeds 7 and 1007)."""
+    px, seeds 7 and 1007); galsim: phase_galsim's ({} for its defaults);
+    farm: phase_farm's (with `field`, phase 11's). Returns (phase 15's
+    launches, phase 16's), {} for a phase not run."""
     field, multi = dict(field or {}), dict(multi or {})
-    with _route_pool(2 + len(MULTIFIELD_ROUTE_ITEMS)) as pool:
+    n = (2 + len(MULTIFIELD_ROUTE_ITEMS) + (galsim is not None)
+         + (farm is not None))
+    with _route_pool(n) as pool:
+        f16 = (pool.submit(_one_thread, phase_farm, device=device, **farm)
+               if farm is not None else None)
+        f15 = (pool.submit(_one_thread, phase_galsim, device, **galsim)
+               if galsim is not None else None)
         f10 = _submit_field_routes(pool, device, **field)
         f14 = _submit_multifield_routes(pool, device, **multi)
         _check_field_routes(f10, device)
         _check_multifield_routes(f14, len(multi.get("seeds", (7, 1007))))
+        return (f15.result() if f15 is not None else {},
+                f16.result() if f16 is not None else {})
 
 
 def _joint_turn(kind, joint, tmp):
@@ -2389,6 +2442,187 @@ def app_route_witness(device="cuda", size=222, n_sources=24,
               f"bar {'met' if met else 'missed'}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 15-16: the GalSim suite's CI subset and the farm worker
+# ---------------------------------------------------------------------------
+
+GALSIM_RADIUS = 40.0   # the reference's ACTIVE_PIXELS_MIN_RADIUS_PX
+GALSIM_ARTIFACT = os.path.join("benchmark", "galsim_results.csv")
+
+
+def phase_galsim(device="cuda", names=None, radius=GALSIM_RADIUS,
+                 config=None, newton_config=None, bars=True):
+    """The GalSim suite's CI subset (galsim.CI_CASES: five 96 x 96 px
+    scenes, radius 40) through the port's runner (galsim_suite.run_suite:
+    run_benchmarks, joint, f64), then the noise-free rerun of its noisy
+    scenes. Prints each scene's estimates beside the JAX package's
+    artifact row (benchmark/galsim_results.csv), the field scores, both
+    gates, the wall and K1-K3's launches. Bars (bars=True): 0 noise-free
+    violations, no star/galaxy misclassification, finite ELBOs, K1-K3
+    launched. Returns the phase's launches."""
+    import torch
+
+    from celeste_jl_tpu_torch.benchmark import accuracy as ab
+    from celeste_jl_tpu_torch.benchmark import galsim_suite
+    from celeste_jl_tpu_torch.benchmark.galsim import CI_CASES
+
+    names = list(names or CI_CASES)
+    res = galsim_suite.run_suite(names, joint=True, radius=radius,
+                                 device=device, dtype=torch.float64,
+                                 config=config, newton_config=newton_config)
+    elbos = res["pred_df"]["elbo"]
+    ref = ab.read_csv(os.path.join(ROOT, GALSIM_ARTIFACT))
+    ref_row = {o: i for i, o in enumerate(ref["objid"])}
+    pred = res["pred_df"]
+    cols = ("is_star", "flux_r_nmgy", "gal_axis_ratio", "gal_radius_px",
+            "gal_angle_deg")
+    for i, o in enumerate(res["truth_df"]["objid"]):
+        j = ref_row.get(o)
+        pairs = ", ".join(
+            f"{c} {pred[c][i]:.10g}"
+            + (f" (JAX {ref['est_' + c][j]:.10g})" if j is not None else "")
+            for c in cols)
+        print(f"phase 15: {o}: {pairs}", flush=True)
+    scores = ", ".join(f"{f} {m:.6g} (N {n})" for f, n, m in zip(
+        res["scores"]["field"], res["scores"]["N"], res["scores"]["first"]))
+    print(f"phase 15: {len(names)} scenes, {len(res['truth_df'])} sources, "
+          f"joint f64, radius {radius:g} px: {res['wall_s']:.3f} s "
+          f"(noise-free rerun {res['nf_wall_s']:.3f} s); field scores: "
+          f"{scores}; violations as defined {len(res['violations'])} "
+          f"{[v[:2] for v in res['violations']]}, noise-free "
+          f"{len(res['nf_violations'])} "
+          f"{[v[:2] for v in res['nf_violations']]}; misclassified "
+          f"{res['missed']}; launches {res['launches']}", flush=True)
+    if bars:
+        ok = (not res["nf_violations"] and not res["missed"]
+              and len(elbos) > 0 and bool(np.all(np.isfinite(elbos))))
+        if device == "cuda":
+            ok = ok and all(n > 0 for n in res["launches"].values())
+        check(ok, f"phase 15: noise-free violations "
+              f"{res['nf_violations']}, misclassified {res['missed']}, "
+              f"finite ELBOs {bool(np.all(np.isfinite(elbos)))}, launches "
+              f"{res['launches']}")
+    print("phase 15 ok", flush=True)
+    return res["launches"]
+
+
+def _worker(argv, device, label):
+    """The farm worker CLI (celeste_jl_tpu_torch.worker) on argv: on the
+    card a process of its own (python -m, as a user runs it), on the CPU
+    main(argv, device="cpu") in this process. Returns its JSON summary."""
+    import contextlib
+    import io
+
+    if device == "cuda":
+        proc = subprocess.run(
+            [sys.executable, "-m", "celeste_jl_tpu_torch.worker", *argv],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"{label}: the worker exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        out = proc.stdout
+    else:
+        from celeste_jl_tpu_torch import worker
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = worker.main(argv, device=device)
+        check(rc == 0, f"{label}: the worker returned {rc}")
+        out = buf.getvalue()
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_farm(field, device="cuda", grid=(2, 2), group=2, config=None,
+               newton_config=None, bars=True):
+    """The farm worker on phase 11's SDSS field (`field`, from
+    phase_app(field=...)): the worker CLI's main on the card, f64, pipelined,
+    over phase 11's box split grid[0] x grid[1] ways, group boxes a
+    schedule, detection as phase 11's (thresh 6); then the same command
+    again as a process of its own on the same workdir (the resume). Prints
+    sources/s, each group's load, detect and infer seconds and K1-K3's
+    launches (K3 also at D = 12, the PSF fits: each box's field-center
+    fits and its per-source fits). Bars
+    (bars=True): every box has its result file, each of phase 11's
+    targets is saved in exactly one box and nothing else is, completeness
+    >= 0.95 and type accuracy >= 0.90 over the union, 0 failures, finite
+    ELBOs, the resume completes 0 boxes, K1-K3 and K3 at D = 12 launched.
+    config and newton_config (defaults Config(), NewtonConfig()) shorten
+    the schedule for a CPU rehearsal. Returns the first run's launches."""
+    import contextlib
+    import io
+
+    from celeste_jl_tpu_torch import worker
+    from celeste_jl_tpu_torch.io.dataset import BoundingBox
+    from celeste_jl_tpu_torch.main import load_results
+    from celeste_jl_tpu_torch.parallel import multinode as mn
+    from celeste_jl_tpu_torch.utils import telemetry
+
+    workdir = os.path.join(field["dir"], "farm")
+    argv = ["--workdir", workdir, "--basedir", field["base"], "--box",
+            ",".join(repr(float(v)) for v in field["box"]), "--grid",
+            f"{grid[0]}x{grid[1]}", "--group-boxes", str(group),
+            "--detect-thresh", "6"]
+    telemetry.counters.reset()
+    buf = io.StringIO()
+    with KernelWidths() as rec, contextlib.redirect_stdout(buf):
+        rc = worker.main(argv, device=device, config=config,
+                         newton_config=newton_config)
+    check(rc == 0, f"phase 16: the worker returned {rc}")
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    psf_k3 = summary["tr_launches_by_dim"].get("12", 0)
+    launches, failures = rec.launches(), telemetry.counters.failures
+    again = _worker(argv, device, "phase 16 resume")
+
+    boxes = mn.split_box(BoundingBox(*field["box"]), *grid)
+    queue = mn.FileWorkQueue(workdir)
+    results, per_box = [], []
+    for b in boxes:
+        res = load_results(queue._result_file(b)) if queue.done(b) else []
+        per_box.append(len(res))
+        results.extend(res)
+    saved = [tuple(r.init_pos) for r in results]
+    want = sorted(tuple(np.asarray(t.pos, np.float64))
+                  for t in field["targets"])
+    n_match, acc, _ = app_score(results, field["truth"], field["wcs"])
+    completeness = n_match / len(field["truth"])
+    elbos = np.array([r.elbo for r in results])
+    wall = summary["wall_s"]
+    groups = "; ".join(
+        f"group {i}: {len(g['boxes'])} boxes, {g['sources']} sources, load "
+        f"{g['load_s']:.3f} s, detect {g['detect_s']:.3f} s, infer "
+        f"{g['infer_s']:.3f} s" for i, g in enumerate(summary["groups"]))
+    print(f"phase 16: worker on phase 11's field, {len(boxes)} boxes "
+          f"({grid[0]}x{grid[1]}), {group} a group, f64: "
+          f"{summary['boxes_done']} boxes done in {wall:.3f} s, "
+          f"{len(results)} sources ({per_box} a box), "
+          f"{len(results) / wall:.3f} sources/s; {groups}; phase 11's "
+          f"targets {len(want)}, saved once each "
+          f"{sorted(saved) == want}; matched {n_match}, completeness "
+          f"{completeness:.4f}, type accuracy {acc:.4f}; failures "
+          f"{failures}; resume: {again['boxes_done']} boxes done, "
+          f"{again['pending']} pending", flush=True)
+    print(f"phase 16 kernels: {rec.summary()}; K3 at D = 12 (the PSF "
+          f"fits) {psf_k3}", flush=True)
+    if bars:
+        ok = (all(queue.done(b) for b in boxes) and sorted(saved) == want
+              and completeness >= FIELD_COMPLETENESS_BAR
+              and acc >= FIELD_TYPE_BAR and failures == 0
+              and bool(np.all(np.isfinite(elbos)))
+              and again["boxes_done"] == 0 and again["pending"] == 0)
+        if device == "cuda":
+            ok = ok and psf_k3 > 0 and all(
+                n > 0 for n in launches.values())
+        check(ok, f"phase 16: boxes done {[queue.done(b) for b in boxes]}, "
+              f"targets saved once each {sorted(saved) == want} "
+              f"({len(saved)} saved, {len(want)} targets), completeness "
+              f"{completeness:.4f}, type accuracy {acc:.4f}, failures "
+              f"{failures}, finite ELBOs {bool(np.all(np.isfinite(elbos)))},"
+              f" resume {again['boxes_done']} boxes, launches {launches}, "
+              f"K3 at D = 12 {psf_k3}")
+    print("phase 16 ok", flush=True)
+    return launches
+
+
 SOURCES = {
     "refresh": ("celeste_jl_tpu_torch/csrc/refresh.cu",
                 "celeste_jl_tpu/ops/pallas_refresh.py:186"),
@@ -2407,7 +2641,10 @@ SOURCES = {
 
 def main():
     sys.path.insert(0, ROOT)
+    import shutil
+
     import torch
+    app_field = {}
     try:
         t0 = time.perf_counter()
         phase_setup()
@@ -2438,7 +2675,7 @@ def main():
         field = phase_field(rec=rec)
         _phase_clock(9, t0)
         t0 = time.perf_counter()
-        app = phase_app(rec=rec)
+        app = phase_app(rec=rec, field=app_field)
         _phase_clock(11, t0)
         t0 = time.perf_counter()
         phase_app_routes()
@@ -2447,16 +2684,21 @@ def main():
         multi = phase_multifield()
         _phase_clock(13, t0)
         t0 = time.perf_counter()
-        phase_routes()
-        _phase_clock("10 and 14", t0)
+        galsim, farm = phase_routes(galsim={}, farm={"field": app_field})
+        _phase_clock("10, 14, 15 and 16", t0)
     except PhaseError as e:
         print(f"FAILED: {e}", flush=True)
         return 1
+    finally:
+        if app_field:
+            shutil.rmtree(app_field["dir"], ignore_errors=True)
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k][0],
              replaces=SOURCES[k][1], launches=launches[k],
              field_launches=field.get(k, 0), app_launches=app.get(k, 0),
-             multifield_launches=multi.get(k, 0), **rec[k])
+             multifield_launches=multi.get(k, 0),
+             galsim_launches=galsim.get(k, 0), farm_launches=farm.get(k, 0),
+             **rec[k])
         for k in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,7 @@ and entry points against each other.
 - f32, the pjacobi route through the plain twins against the eig route at
   the bar of tests/test_pallas_eigh.py:69-108.
 - fit_sources_compacted equals one fit_sources call lane for lane.
+- an f32 fit far from the world origin equals the fit at the origin.
 """
 
 import jax
@@ -70,6 +71,32 @@ def test_pjacobi_plain_matches_eig_f32():
     rel = (res_p.elbo.double().numpy() - e) / np.abs(e)
     assert np.all(rel > -1e-4), rel
     assert np.all(np.isfinite(res_p.vp.numpy()))
+
+
+def test_f32_fit_does_not_depend_on_the_world_origin():
+    """A float32 fit far from the world origin (x + 3584, where float32's
+    spacing, 2.4e-4, is wider than the 2e-4 position box) gives the bits
+    of the same fit at the origin, its positions moved by the shift: the
+    fit works relative to each lane's box center (vi/optimize._fit). With
+    the box in absolute coordinates, as in the JAX package, the position
+    sits on a grid of one or two values there and the fits fail. The
+    card's float32 solver, through the plain twins."""
+    from celeste_jl_tpu_torch.parallel.run import card_newton_config
+
+    cfg = card_newton_config(NewtonConfig(max_iters=12), torch.float32)
+    vp, tp, _, _ = _batch(3, torch.float32)
+    shift = torch.tensor([3584.0, 0.0])
+    far = vp.clone()
+    far[:, 0:2] += shift
+    want = fit_sources(vp, tp, config=cfg)
+    got = fit_sources(far, tp._replace(world_center=tp.world_center + shift),
+                      config=cfg)
+    np.testing.assert_array_equal(got.elbo.numpy(), want.elbo.numpy())
+    np.testing.assert_array_equal(got.free.numpy(), want.free.numpy())
+    np.testing.assert_array_equal(got.vp[:, 2:].numpy(),
+                                  want.vp[:, 2:].numpy())
+    np.testing.assert_allclose((got.vp[:, 0:2] - shift).numpy(),
+                               want.vp[:, 0:2].numpy(), atol=2.5e-4)
 
 
 @pytest.mark.parametrize("stage1,with_bg", [(2, False), (10, True)])

@@ -37,6 +37,7 @@ from celeste_jl_tpu_torch.ops.newton import NewtonConfig
 from celeste_jl_tpu_torch.parallel import packing, run
 from celeste_jl_tpu_torch.parallel.run import one_node_joint_infer
 from celeste_jl_tpu_torch.utils import flops, telemetry
+from celeste_jl_tpu_torch.utils.config import Config
 
 # The suite runs test files in parallel worker processes; one intra-op
 # thread each keeps torch from oversubscribing the cores.
@@ -47,6 +48,10 @@ F64 = dict(device="cpu", dtype=torch.float64)
 JCFG = JaxConfig(num_joint_vi_iters=4)
 CFG = convert.config(JCFG)
 NEWTON = NewtonConfig(max_iters=30)
+# every stage of the joint schedule at two refreshes a fit
+SHORT = Config(num_joint_vi_iters=2, joint_step_refreshes=2,
+               polish_refreshes=2, polish_sweeps=1, probe_refreshes=2)
+SHORT_NEWTON = NewtonConfig(max_iters=12)
 
 
 def _random_graph(rng, n=60, extent=40.0, reach=6.0):
@@ -158,9 +163,12 @@ def test_fused_schedule_matches_host_schedule(scene, tmp_path):
     """tests/test_infer.py::test_fused_schedule_matches_host_schedule on
     the port: the fused schedule over the host schedule's classes
     (fused=False) reproduces the host-driven loop (the same backgrounds,
-    acceptance and update order), which a checkpoint_path selects."""
+    acceptance and update order), which a checkpoint_path selects. The
+    schedule keeps its every stage (two warm sweeps, the probe, a polish
+    sweep) at two refreshes a fit (SHORT): the bookkeeping, not the fit,
+    is under test."""
     _, _, p_images, p_truth = scene
-    kw = dict(config=CFG, newton_config=NEWTON, seed=42, **F64)
+    kw = dict(config=SHORT, newton_config=SHORT_NEWTON, seed=42, **F64)
     res_fused = one_node_joint_infer(p_truth, p_images, fused=False, **kw)
     assert telemetry.counters.serial_steps > 0    # the fused path ran
     res_host = one_node_joint_infer(

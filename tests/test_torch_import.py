@@ -33,11 +33,13 @@ assert not bad, bad
 
 _RUN_MAIN = """
 import runpy, sys
-sys.argv = ['celeste_jl_tpu_torch', '--help']
-try:
-    runpy.run_module('celeste_jl_tpu_torch', run_name='__main__')
-except SystemExit as e:
-    assert e.code == 0, e.code
+for mod in ('celeste_jl_tpu_torch', 'celeste_jl_tpu_torch.worker',
+            'celeste_jl_tpu_torch.benchmark.galsim_suite'):
+    sys.argv = [mod, '--help']
+    try:
+        runpy.run_module(mod, run_name='__main__')
+    except SystemExit as e:
+        assert e.code == 0, e.code
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'celeste_jl_tpu', 'yaml'))
 print(bad)
@@ -54,24 +56,32 @@ def _run(args, cwd):
 
 def test_port_modules_import_without_jax():
     """No module named jax, jax.*, celeste_jl_tpu, celeste_jl_tpu.* or yaml
-    is loaded after every port module and chip_smoke are imported, nor
-    after `python -m celeste_jl_tpu_torch --help` has run."""
+    is loaded after every port module (the runners and the worker CLI
+    among them) and chip_smoke are imported, nor after `python -m
+    celeste_jl_tpu_torch --help`, `python -m celeste_jl_tpu_torch.worker
+    --help` and the GalSim runner's --help have run."""
     # a subprocess: tests/conftest.py has imported jax into this one
     proc = _run(["-c", _IMPORT_ALL], ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 45, proc.stdout
+    assert n_modules >= 53, proc.stdout
     for m in ("utils.log", "utils.telemetry", "utils.coordinates",
               "utils.device", "io.dataset", "io.fits", "io.wcs", "io.sdss",
               "io.decals", "detection._native", "detection.background",
               "detection.extract", "detection.detect", "models.psf_fit",
               "parallel.partition", "parallel.packing", "parallel.run",
               "parallel.fused", "utils.flops", "benchmark.multifield",
-              "vi.stochastic", "main"):
+              "vi.stochastic", "main", "benchmark.accuracy",
+              "benchmark.galsim", "benchmark.bundle",
+              "benchmark.independent_render", "benchmark.galsim_suite",
+              "benchmark.worker_farm", "models.fit_priors",
+              "parallel.multinode", "worker"):
         assert f"celeste_jl_tpu_torch.{m}'" in proc.stdout, m
     proc = _run(["-c", _RUN_MAIN], ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "--method" in proc.stdout and "svi" in proc.stdout
+    assert "--workdir" in proc.stdout and "--group-boxes" in proc.stdout
+    assert "--scenes" in proc.stdout and "--radius" in proc.stdout
 
 
 def test_chip_smoke_fails_without_cuda_or_checkout(tmp_path):
@@ -87,18 +97,24 @@ def test_chip_smoke_fails_without_cuda_or_checkout(tmp_path):
         assert '"ok"' not in proc.stdout, proc.stdout
 
 
-def test_chip_smoke_phases_run_on_cpu_twins():
-    """Phases 2-10 of chip_smoke.py at tiny sizes on CPU tensors, where every
+def test_chip_smoke_phases_run_on_cpu_twins(monkeypatch):
+    """Phases 2-9 of chip_smoke.py at tiny sizes on CPU tensors, where every
     wrapper runs its plain twin: this holds the script's control flow and
-    checks, not the kernels (those run only on the card)."""
+    checks, not the kernels (those run only on the card). Phase 10 runs in
+    phase_routes, as main runs it
+    (test_chip_smoke_multifield_phases_run_on_cpu_twins)."""
     import chip_smoke as cs
 
     rec = cs.phase_kernels(device="cpu", k1_sets=((2, 16), (1, 40)), n_mats=4)
-    launches = cs.phase_slice(device="cpu", n_sources=3, tile=16, rec=rec)
-    # the fit's stage 2 runs (in place, B = 3): K2 and K3 checked there too
-    assert rec["jacobi_sweep"]["stage2"]["B"] == 3
+    launches = cs.phase_slice(device="cpu", n_sources=4, tile=16, rec=rec)
+    # the fit's stage 2 runs (in place, B = 4): K2 and K3 checked there too
+    assert rec["jacobi_sweep"]["stage2"]["B"] == 4
     assert rec["tr_subproblem"]["stage2"]["bound_ms"] > 0
     assert {"floor_ms"} <= set(rec["jacobi_sweep"]) & set(rec["tr_subproblem"])
+    # the fits of phases 4 and 8 cut to three refresh cycles: the routes'
+    # comparison and bars, not the fit, are rehearsed
+    short_fit = cs.bench_config()._replace(max_iters=3)
+    monkeypatch.setattr(cs, "bench_config", lambda: short_fit)
     cs.phase_compare(device="cpu", n_sources=2, tile=16)
     scene = cs.mcmc_scene("cpu", n_sources=2)
     rec.update(cs.phase_new_kernels(scene, device="cpu", tiles=(16,),
@@ -124,7 +140,6 @@ def test_chip_smoke_phases_run_on_cpu_twins():
                                max_iters=2), bars=False)
     assert field == {k: 0 for k in cs.FIELD_KERNELS}
     assert all(rec[k]["field"]["bound_ms"] > 0 for k in cs.FIELD_KERNELS)
-    cs.phase_field_routes(device="cpu", n_sources=4, size=48, config=tiny)
     assert set(rec) == set(launches) == set(cs.SOURCES)
     assert all(r["max_abs_err"] == 0.0 for r in rec.values())
     assert all(r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
@@ -154,32 +169,64 @@ def test_entry_points_match_the_c_signatures():
     assert declared == _build.ENTRY_POINTS
 
 
-def test_chip_smoke_app_phases_run_on_cpu_twins():
-    """Phases 11-12 of chip_smoke.py (the survey app) on a 96 x 64 and a
-    64 x 64 SDSS field of a few sources on the CPU, the schedules cut
-    short: the field writer, main, the scorer through the TAN WCS and the
-    route comparisons, not the kernels."""
-    import chip_smoke as cs
-    from celeste_jl_tpu_torch.utils.config import Config
+def test_chip_smoke_app_phases_run_on_cpu_twins(monkeypatch):
+    """Phases 11, 12 and 16 of chip_smoke.py (the survey app and the farm
+    worker) on a 96 x 64 and a 64 x 64 SDSS field of a few sources on the
+    CPU, the schedules cut short (SVI to 50 steps, main's single_vi fits
+    to 3 refresh cycles): the field writer, main, the scorer through the
+    TAN WCS, the route comparisons, and the worker CLI over phase 11's
+    files with its resume, not the kernels."""
+    import functools
+    import shutil
 
+    import chip_smoke as cs
+    from celeste_jl_tpu_torch.ops.newton import NewtonConfig
+    from celeste_jl_tpu_torch.parallel import run
+    from celeste_jl_tpu_torch.utils.config import Config
+    from celeste_jl_tpu_torch.vi.stochastic import SVIConfig
+
+    monkeypatch.setattr(run, "SVIConfig", lambda: SVIConfig(steps=50))
+    monkeypatch.setattr(run, "one_node_single_infer", functools.partial(
+        run.one_node_single_infer, newton_config=NewtonConfig(max_iters=3)))
     rec = {"tr_subproblem": {}}
-    launches = cs.phase_app(device="cpu", H=96, W=64, n_sources=4,
-                            method="single_vi", rec=rec, bars=False)
-    assert launches == {k: 0 for k in cs.FIELD_KERNELS}
-    k3 = rec["tr_subproblem"]["psf_fit"]
-    assert (k3["B"], k3["D"]) == (4, 12) and k3["max_abs_err"] == 0.0
-    assert k3["bound_ms"] > 0 and k3["bound_by"] in ("bytes", "operations")
-    tiny = Config(num_joint_vi_iters=1, joint_step_refreshes=2,
-                  polish_refreshes=2, polish_sweeps=1, probe_refreshes=2)
-    cs.phase_app_routes(device="cpu", size=64, n_sources=3, config=tiny)
+    field = {}
+    try:
+        launches = cs.phase_app(device="cpu", H=96, W=64, n_sources=4,
+                                method="single_vi", rec=rec, bars=False,
+                                field=field)
+        assert launches == {k: 0 for k in cs.FIELD_KERNELS}
+        assert len(field["targets"]) == 4 and os.path.isdir(field["base"])
+        k3 = rec["tr_subproblem"]["psf_fit"]
+        assert (k3["B"], k3["D"]) == (4, 12) and k3["max_abs_err"] == 0.0
+        assert k3["bound_ms"] > 0 and k3["bound_by"] in ("bytes",
+                                                          "operations")
+        tiny = Config(num_joint_vi_iters=1, joint_step_refreshes=2,
+                      polish_refreshes=2, polish_sweeps=1, probe_refreshes=2)
+        cs.phase_app_routes(device="cpu", size=64, n_sources=3, config=tiny)
+        # phase 16 on phase 11's files: every target saved once, the
+        # resume completing nothing (bars=False: the fits are cut short);
+        # main hands the field to a process of its own, so it pickles
+        import pickle
+
+        field = pickle.loads(pickle.dumps(field))
+        farm = cs.phase_farm(field, device="cpu", grid=(2, 1), config=tiny,
+                             newton_config=NewtonConfig(max_iters=3),
+                             bars=False)
+        assert farm == {k: 0 for k in cs.FIELD_KERNELS}
+    finally:
+        if field:
+            shutil.rmtree(field["dir"], ignore_errors=True)
 
 
 def test_chip_smoke_multifield_phases_run_on_cpu_twins():
-    """Phases 13-14 of chip_smoke.py (the multi-field fused schedule) on
-    two 48 x 48 fields of 6 sources on the CPU, the schedules cut to a
-    refresh a step: the runner, the staging spy, the class count across
-    fields and the route comparisons, not the kernels; phase 14 beside
-    phase 10 (4 sources on 48 x 48), as main runs them."""
+    """Phases 13-15 of chip_smoke.py (the multi-field fused schedule and the
+    GalSim suite's CI subset) on two 48 x 48 fields of 6 sources and on a
+    noise-free and a noisy GalSim scene at radius 8 on the CPU, the
+    schedules cut to a refresh a step: the runner, the staging spy, the
+    class count across fields, the route comparisons, the GalSim runner
+    with its noise-free rerun and the artifact rows, not the kernels;
+    phases 14 and 15 beside phase 10 (4 sources on 48 x 48), as main
+    runs them."""
     import chip_smoke as cs
     from celeste_jl_tpu_torch.ops.newton import NewtonConfig
     from celeste_jl_tpu_torch.utils.config import Config
@@ -198,8 +245,11 @@ def test_chip_smoke_multifield_phases_run_on_cpu_twins():
     assert len(states) == 2 and handle is not None
     assert fs.multi_field_classes() > 0
     assert handle["schedule_s"] > 0 and handle["stage_s"] > 0
-    # phase 14 as main runs it, in one pool with phase 10's two runs
-    cs.phase_routes(device="cpu",
-                    field=dict(n_sources=4, size=48, config=short),
-                    multi=dict(n_sources=6, size=48, config=short,
-                               newton_config=newton, bars=False))
+    # phases 14 and 15 as main runs them, in one pool with phase 10's runs
+    galsim, farm = cs.phase_routes(
+        device="cpu", field=dict(n_sources=4, size=48, config=short),
+        multi=dict(n_sources=6, size=48, config=short, newton_config=newton,
+                   bars=False),
+        galsim=dict(names=["simple_star", "star_with_noise"], radius=8.0,
+                    newton_config=NewtonConfig(max_iters=2), bars=False))
+    assert galsim == {k: 0 for k in cs.FIELD_KERNELS} and farm == {}

@@ -3,10 +3,12 @@ joint_infer_fields_pipelined, over parallel/fused.py) against the JAX
 package's and against itself, f64 on the CPU, on
 tests/test_multifield.py's scenes:
 
-- joint_infer_fields on the two fields: each field's result bit for bit
-  (the CPU launches each isolated member alone), the JAX package's merged
-  result to 1e-4 (classifications, ELBOs), the known answers;
-- the internal-conflict scene: classifications and deblended fluxes;
+- joint_infer_fields on the two fields and the internal-conflict scene's
+  two, one schedule shared by two tests: the two fields against the JAX
+  package's merged result to 1e-4 (classifications, ELBOs) and the known
+  answers, the conflict scene's classifications and deblended fluxes;
+  with a short schedule, each field's result bit for bit against the
+  field alone (the CPU launches each isolated member alone);
 - the pipeline bit for bit against joint_infer_fields per group, the
   generator a group ahead of the consumer;
 - the budget fallback, and a fit failing inside the schedule in
@@ -77,22 +79,32 @@ def _conflict_fields():
              "images": convert.images(f["images"])} for f in (f1, f2)]
 
 
-def test_two_fields_match_each_field_and_jax():
+def _two_fields():
+    return [_mf_field(seed=1), _mf_field(seed=2, star_pos=(18.0, 40.0))]
+
+
+@pytest.fixture(scope="module")
+def merged_four():
+    """One full schedule over the two fields and the two internal-conflict
+    fields together (fields never interact, so each field's result is the
+    one it gets merged with its own pair: the two tests that read it
+    share one run)."""
+    return joint_infer_fields([p for _, p in _two_fields()]
+                              + _conflict_fields(), config=MF_CFG, seed=42,
+                              **F64)
+
+
+def test_two_fields_match_each_field_and_jax(merged_four):
     """tests/test_multifield.py::test_two_fields_one_launch_matches_per_
-    field on the port: bit for bit against each field alone (on the CPU
-    each isolated member is its own launch), and against the JAX package's
-    merged result: the same classifications, ELBOs within 1e-4; and the
-    known answers."""
-    pairs = [_mf_field(seed=1), _mf_field(seed=2, star_pos=(18.0, 40.0))]
-    multi = joint_infer_fields([p for _, p in pairs], config=MF_CFG,
-                               seed=42, **F64)
-    assert len(multi) == 2 and all(len(r) == 2 for r in multi)
-    for (_, fld), got in zip(pairs, multi):
-        alone = one_node_joint_infer(fld["catalog"], fld["images"],
-                                     config=MF_CFG, seed=42, **F64)
-        for a, b in zip(alone, got):
-            np.testing.assert_array_equal(b.vs, a.vs)
-            assert b.elbo == a.elbo
+    field on the port: the two fields merged (here with the conflict
+    fields, merged_four) against the JAX package's merged result (the
+    same classifications, ELBOs within 1e-4) and the known answers; and,
+    with the schedule cut short (SHORT: the merge's bookkeeping, the same
+    program either way), bit for bit against each field alone (on the CPU
+    each isolated member is its own launch)."""
+    pairs = _two_fields()
+    multi = merged_four[:2]
+    assert len(merged_four) == 4 and all(len(r) == 2 for r in multi)
     jmulti = jrun.joint_infer_fields([j for j, _ in pairs], config=JMF_CFG,
                                      seed=42)
     for got, want in zip(multi, jmulti):
@@ -103,14 +115,22 @@ def test_two_fields_match_each_field_and_jax():
     for got in multi:
         assert got[0].vs[ids.is_star[0]] > 0.5
         assert got[1].vs[ids.is_star[0]] < 0.5
+    kw = dict(config=SHORT, newton_config=SHORT_NEWTON, seed=42, **F64)
+    short = joint_infer_fields([p for _, p in pairs], **kw)
+    for (_, fld), got in zip(pairs, short):
+        alone = one_node_joint_infer(fld["catalog"], fld["images"], **kw)
+        assert len(alone) == len(got) == 2
+        for a, b in zip(alone, got):
+            np.testing.assert_array_equal(b.vs, a.vs)
+            assert b.elbo == a.elbo
 
 
-def test_fields_with_internal_conflicts_stay_correct():
-    """tests/test_multifield.py's conflict scene on the port: the merged
-    packer never co-schedules the overlapping pair; classifications and
-    the deblended fluxes within 10 %."""
-    r1, r2 = joint_infer_fields(_conflict_fields(), config=MF_CFG, seed=42,
-                                **F64)
+def test_fields_with_internal_conflicts_stay_correct(merged_four):
+    """tests/test_multifield.py's conflict scene on the port (merged with
+    the two isolated fields, merged_four): the merged packer never
+    co-schedules the overlapping pair; classifications and the deblended
+    fluxes within 10 %."""
+    r1, r2 = merged_four[2:]
     assert all(r.vs[ids.is_star[0]] > 0.5 for r in r1)
     assert r2[0].vs[ids.is_star[0]] < 0.5
     fluxes = sorted(np.exp(r.vs[ids.flux_loc[0]]) for r in r1)
