@@ -107,14 +107,22 @@ class Table:
         return Table({k: v[rows] for k, v in self._cols.items()})
 
     def insert(self, loc, name, values):
-        """Add a column at position loc (pandas DataFrame.insert)."""
+        """Add a column at position loc (pandas DataFrame.insert); a
+        scalar fills every row."""
+        n = len(self) if self._cols else None
         items = list(self._cols.items())
         self._cols = {}
         for k, v in items[:loc]:
             self._cols[k] = v
-        self[name] = values
+        self._cols[name] = _column(values, n)
         for k, v in items[loc:]:
             self._cols[k] = v
+
+    def groupby(self, name):
+        """[(key, the rows with that key)] in sorted key order, as pandas'
+        groupby(name) iterates."""
+        col = self._cols[name]
+        return [(k, self.take(col == k)) for k in sorted(set(col.tolist()))]
 
     def copy(self):
         return Table({k: v.copy() for k, v in self._cols.items()})

@@ -12,8 +12,8 @@ launch per evaluation for both models (mcmc/log_prob.blocks_loglike).
 Entry points default to device="cuda" and float32, as the TPU bench runs;
 they take a seed (a torch.Generator on the device is seeded from it) and
 run on the CPU only when asked (device="cpu"). The reporting helpers
-(samples_to_dataframe, samples_to_row, mcmc_to_df) need pandas, imported
-where they are called.
+(samples_to_dataframe, samples_to_row, mcmc_to_df) return
+benchmark/accuracy.Table's with the JAX package's pandas columns.
 """
 
 import logging
@@ -23,6 +23,7 @@ import time
 import numpy as np
 import torch
 
+from ..benchmark.accuracy import Table
 from ..models.patches import make_patch_for_source, make_patches_batched
 from ..utils.config import Config
 from ..vi.elbo import default_prior
@@ -327,10 +328,12 @@ def potential_scale_reduction(chains):
 
 
 def one_node_mcmc_infer(catalog, images, target_sources=None, config=None,
-                        seed=0, device="cuda", dtype=torch.float32):
+                        seed=0, device="cuda", dtype=torch.float32,
+                        num_samples_per_chain=25):
     """MCMC (AIS) over every target source as one batched program;
     neighbors rendered as fixed background from their catalog entries
-    (ParallelRun.jl:504-543, threads -> lanes)."""
+    (ParallelRun.jl:504-543, threads -> lanes). num_samples_per_chain:
+    the posterior slice chain's length after each AIS draw."""
     config = config or Config()
     targets = (list(range(len(catalog))) if target_sources is None
                else list(target_sources))
@@ -338,8 +341,9 @@ def one_node_mcmc_infer(catalog, images, target_sources=None, config=None,
     results = run_ais_batched(
         catalog, images, targets=targets,
         num_temperatures=config.num_ais_temperatures,
-        num_samples=config.num_ais_samples, seed=seed, config=config,
-        device=device, dtype=dtype)
+        num_samples=config.num_ais_samples,
+        num_samples_per_chain=num_samples_per_chain, seed=seed,
+        config=config, device=device, dtype=dtype)
     wall = time.perf_counter() - t0
     log.info(f"mcmc: {len(targets)} sources in one batched AIS program "
              f"({wall:.2f}s, {len(targets) / max(wall, 1e-9):.2f} "
@@ -352,18 +356,16 @@ def one_node_mcmc_infer(catalog, images, target_sources=None, config=None,
 
 
 # ---------------------------------------------------------------------------
-# Chain reporting (mcmc_misc.jl:105-168); pandas is needed only here
+# Chain reporting (mcmc_misc.jl:105-168)
 # ---------------------------------------------------------------------------
 
 def samples_to_dataframe(chain, is_star=True):
-    """MCMC samples -> DataFrame with catalog-comparable columns
+    """MCMC samples -> Table with catalog-comparable columns
     (mcmc_misc.jl:105-133): reference-band flux + colors from lnfluxes,
     world position, galaxy shape with the radius scaled to the
     effective-radius convention (px * sqrt(axis_ratio))."""
-    import pandas as pd
-
     chain = np.asarray(chain)
-    df = pd.DataFrame({
+    df = Table({
         "log_flux_r": chain[:, 2],
         "flux_r_nmgy": np.exp(chain[:, 2]),
         "color_ug": chain[:, 1] - chain[:, 0],
@@ -381,7 +383,7 @@ def samples_to_dataframe(chain, is_star=True):
 
 
 def samples_to_row(sampdf, is_star=True):
-    """Summarize a chain DataFrame into one catalog row (posterior means +
+    """Summarize a chain Table into one catalog row (posterior means +
     stderr columns, mcmc_misc.jl:137-168)."""
     row = {
         "ra": sampdf["ra"].mean(), "dec": sampdf["dec"].mean(),
@@ -403,12 +405,10 @@ def samples_to_row(sampdf, is_star=True):
 
 
 def mcmc_to_df(results, num_chains=10):
-    """one_node_mcmc_infer results -> catalog DataFrame, with per-source
+    """one_node_mcmc_infer results -> catalog Table, with per-source
     p(star), lnZ diagnostics and the Gelman-Rubin PSRF of the winning
     model's chains. num_chains: the AIS num_samples used (each AIS draw
     seeds one posterior chain)."""
-    import pandas as pd
-
     rows = []
     for res in results:
         is_star = res["ave_pstar"] > 0.5
@@ -427,4 +427,4 @@ def mcmc_to_df(results, num_chains=10):
         else:
             row["max_psrf"] = np.nan
         rows.append(row)
-    return pd.DataFrame(rows)
+    return Table.from_rows(rows)

@@ -32,18 +32,21 @@ def _vech(qtr):
     return torch.stack([c[0, 0], c[0, 1], c[1, 1]])
 
 
-def vech_cov_chain(axis_ratio, angle, radius):
+def vech_cov_chain(axis_ratio, angle, radius, second=True):
     """A = d vech(XiXi) / d(axis_ratio, angle, radius) (..., 3, 3) and its
-    second derivative T (..., 3, 3, 3), by forward-mode AD per element
-    (replaces GalaxySigmaDerivs, BivariateNormals.jl:331-404)."""
+    second derivative T (..., 3, 3, 3) (None unless `second`), by
+    forward-mode AD per element (replaces GalaxySigmaDerivs,
+    BivariateNormals.jl:331-404)."""
     qtr = torch.stack([axis_ratio, angle, radius], dim=-1)
     lead = qtr.shape[:-1]
     flat = qtr.reshape(-1, 3)
     # forward-mode AD of a float32 0-dim tensor minus a Python float comes
     # back float64; cast to the input's dtype
-    A = vmap(jacfwd(_vech))(flat).to(qtr.dtype)
+    A = vmap(jacfwd(_vech))(flat).to(qtr.dtype).reshape(lead + (3, 3))
+    if not second:
+        return A, None
     T = vmap(jacfwd(jacfwd(_vech)))(flat).to(qtr.dtype)
-    return A.reshape(lead + (3, 3)), T.reshape(lead + (3, 3, 3))
+    return A, T.reshape(lead + (3, 3, 3))
 
 
 def eta_basis_rows(L00, L01, L11):
@@ -156,10 +159,12 @@ def star_mixture(theta6, psf_b, wcs_jacobian, world_center, pixel_center):
     return means, covs, weights, chain, chain2
 
 
-def galaxy_mixture(theta6, psf_b, wcs_jacobian, world_center, pixel_center):
+def galaxy_mixture(theta6, psf_b, wcs_jacobian, world_center, pixel_center,
+                   second=True):
     """Galaxy = PSF x (8 de Vaucouleurs + 6 exponential) profile mixture
     (model/fsm_util.jl:111-169), C = 14 K components, same return layout as
-    star_mixture."""
+    star_mixture; chain2 is None unless `second` (the gradient needs only
+    chain)."""
     kw = dict(dtype=psf_b.dtype, device=psf_b.device)
     frac_dev = theta6[..., FDEV, None]
     m_pos = linear_world_to_pix(wcs_jacobian, world_center, pixel_center,
@@ -179,7 +184,7 @@ def galaxy_mixture(theta6, psf_b, wcs_jacobian, world_center, pixel_center):
     XiXi = get_bvn_cov(theta6[..., AXIS], theta6[..., ANGLE],
                        theta6[..., RADIUS])
     A, T = vech_cov_chain(theta6[..., AXIS], theta6[..., ANGLE],
-                          theta6[..., RADIUS])
+                          theta6[..., RADIUS], second)
 
     weights = (a[..., :, None] * (eta * frac)[..., None, :]).reshape(
         lead + (C,))
@@ -200,6 +205,8 @@ def galaxy_mixture(theta6, psf_b, wcs_jacobian, world_center, pixel_center):
     zc = torch.zeros_like(dlw)
     w_row = torch.stack([zc, zc, dlw, zc, zc, zc], dim=-1)[..., None, :]
     chain = torch.cat([mu_rows, s_rows, w_row], dim=-2)      # (..., C, 6, 6)
+    if not second:
+        return means, covs, weights, chain, None
 
     s2 = F.pad(nu_flat[:, None, None, None] * T[..., None, :, :, :],
                (3, 0, 3, 0))                                 # (..., C, 3, 6, 6)
@@ -208,3 +215,95 @@ def galaxy_mixture(theta6, psf_b, wcs_jacobian, world_center, pixel_center):
     chain2 = torch.cat([torch.zeros(lead + (C, 2, 6, 6), **kw), s2, w2],
                        dim=-3)
     return means, covs, weights, chain, chain2
+
+
+def component_fields(x1, x2, means, covs, weights):
+    """Per component and pixel: the precision entries (..., C), l = Lam
+    (x - mu) as (l1, l2) (..., C, N) and the densities g (..., C, N), on
+    flat pixel coordinates x1, x2 (..., N)."""
+    c00, c01, c11 = covs[..., 0, 0], covs[..., 0, 1], covs[..., 1, 1]
+    det = c00 * c11 - c01 * c01
+    inv_det = 1.0 / det
+    L00, L01, L11 = c11 * inv_det, -c01 * inv_det, c00 * inv_det
+    z = weights / (TWO_PI * torch.sqrt(det))
+    d1 = x1[..., None, :] - means[..., 0, None]
+    d2 = x2[..., None, :] - means[..., 1, None]
+    l1 = L00[..., None] * d1 + L01[..., None] * d2
+    l2 = L01[..., None] * d1 + L11[..., None] * d2
+    g = z[..., None] * torch.exp(-0.5 * (d1 * l1 + d2 * l2))
+    return L00, L01, L11, l1, l2, g
+
+
+def mixture_values(x1, x2, means, covs, weights, *_unused):
+    """Value-only mixture render on flat pixel coordinates: (..., N)."""
+    return torch.sum(component_fields(x1, x2, means, covs, weights)[-1],
+                     dim=-2)
+
+
+def mixture_value_jac_hess(x1, x2, means, covs, weights, chain, chain2, wh):
+    """Value, shape jacobian and weight-contracted shape Hessian of a
+    Gaussian-mixture render on flat pixel coordinates x1, x2 (..., N).
+
+    means (..., C, 2), covs (..., C, 2, 2), weights (..., C) (the
+    1/(2 pi sqrt det) normalizer applied here); chain (..., C, 6, 6) and
+    chain2 (..., C, 6, 6, 6) as star_mixture / galaxy_mixture give them;
+    wh (..., N) the Hessian's weight field. Returns (fs (..., N),
+    J (..., 6, N), Hc (..., 6, 6)): fs = sum_c g_c, J = d fs / d theta,
+    Hc = sum_px wh d2 fs / d theta2."""
+    L00, L01, L11, l1, l2, g = component_fields(x1, x2, means, covs,
+                                                 weights)
+    fs = torch.sum(g, dim=-2)
+    P = torch.einsum("...cat,...cab->...ctb", chain,
+                     eta_basis_rows(L00, L01, L11))          # (..., C, 6, 6)
+    p20, p11, p02 = l1 * l1, l1 * l2, l2 * l2
+    basis = (None, l1, l2, p20, p11, p02)
+    # J = sum_c sum_b P[c, :, b] g_c b_b, one basis function at a time so
+    # no (..., C, 6, N) operand is made
+    J = sum(torch.einsum("...ct,...cn->...tn", P[..., b],
+                         g if b == 0 else g * basis[b]) for b in range(6))
+    wg = wh[..., None, :] * g
+    m15 = torch.stack([torch.sum(wg * t, dim=-1) for t in (
+        torch.ones_like(l1), l1, l2, p20, p11, p02, p20 * l1, p20 * l2,
+        l1 * p02, p02 * l2, p20 * p20, p20 * p11, p20 * p02, p11 * p02,
+        p02 * p02)], dim=-1)                                 # (..., C, 15)
+    H = hess_from_moments(moment_matrix(m15), L00, L01, L11, P, chain,
+                          chain2)
+    return fs, J, H
+
+
+def mixture_grad_contract(x1, x2, means, covs, weights, chain, _chain2, w):
+    """Weight-contracted shape gradient of a mixture render,
+    sum_px w d fs / d theta (..., 6): the degree-<=2 moments of
+    mixture_value_jac_hess (6 weighted pixel sums a component instead of
+    the Hessian's 15), the analytic (f, g) evaluator's engine."""
+    return grad_from_fields(component_fields(x1, x2, means, covs, weights),
+                            chain, w)
+
+
+def grad_from_fields(fields, chain, w):
+    """mixture_grad_contract on a mixture's component_fields, computed
+    once for its values and its gradient."""
+    L00, L01, L11, l1, l2, g = fields
+    wg = w[..., None, :] * g
+    a, b = wg * l1, wg * l2
+    m = torch.stack([torch.sum(wg, dim=-1), torch.sum(a, dim=-1),
+                     torch.sum(b, dim=-1), torch.sum(a * l1, dim=-1),
+                     torch.sum(a * l2, dim=-1), torch.sum(b * l2, dim=-1)],
+                    dim=-1)                                  # (..., C, 6)
+    P = torch.einsum("...cat,...cab->...ctb", chain,
+                     eta_basis_rows(L00, L01, L11))
+    return torch.einsum("...ctb,...cb->...t", P, m)
+
+
+def band_shape_derivs(theta6, psf_b, wcs_jacobian, world_center,
+                      pixel_center, x1, x2, w0, w1):
+    """One band's star and galaxy values, jacobians and weight-contracted
+    shape Hessians on flat pixel coordinates x1, x2 (..., N), with the
+    Hessian weight fields w0, w1 (..., N). Returns (fs0, fs1 (..., N),
+    J0, J1 (..., 6, N), Hc0, Hc1 (..., 6, 6))."""
+    sm = star_mixture(theta6, psf_b, wcs_jacobian, world_center, pixel_center)
+    gm = galaxy_mixture(theta6, psf_b, wcs_jacobian, world_center,
+                        pixel_center)
+    fs0, J0, Hc0 = mixture_value_jac_hess(x1, x2, *sm, w0)
+    fs1, J1, Hc1 = mixture_value_jac_hess(x1, x2, *gm, w1)
+    return fs0, fs1, J0, J1, Hc0, Hc1

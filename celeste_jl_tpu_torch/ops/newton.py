@@ -25,10 +25,14 @@ class NewtonConfig(NamedTuple):
     """The JAX NewtonConfig's fields and defaults. The port runs
     tr_solver "eig" (torch.linalg.eigh, the f64 parity route) and "pjacobi"
     (ops/eigh.py) with secular "bisect" or "newton" (bisect_iters
-    iterations either way). refresh_kernel and tr_kernel "pallas" select
-    the CUDA kernels' wrappers (ops/refresh.pixel_terms,
-    ops/tr.tr_subproblem; the latter for "bisect" only), "xla" their plain
-    twins. eigh_fused (the
+    iterations either way), and grad_mode "ad" (a step's (f, g) by
+    autograd through the tile render) or "analytic" (vi/optimize.
+    _analytic_lik_value_grad). refresh_kernel and tr_kernel "pallas"
+    select the CUDA kernels' wrappers (ops/refresh.pixel_terms,
+    ops/tr.tr_subproblem; the latter for "bisect" only), "xla" their
+    plain twins; with grad_mode="analytic" refresh_kernel "xla" is the
+    JAX package's XLA refresh in plain torch on the steps' flat fields
+    (vi/optimize._band_lik_terms). eigh_fused (the
     JAX package's CELESTE_EIGH_FUSED, a field here) picks the pjacobi
     sweep: the fused kernel (True) or the split pair (False)."""
     max_iters: int = 50

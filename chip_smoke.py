@@ -43,7 +43,8 @@ Phases, one line each; the first failure exits non-zero:
   7. the AIS program through K4 and through its twin in f64 from the same
      seed on 8 sources (20 temperatures x 4 samples, 10-step chains): the
      same star/galaxy side everywhere and lnZ within 1e-6 relative on at
-     least 7 of 8 sources;
+     least 7 of 8 sources; in a process of its own in the route pool
+     after phase 13 (on its own copy of the scene);
   8. the fit of phase 4 with the split sweep (NewtonConfig.eigh_fused =
      False) against the fused one, f64, 256 sources: no flip, the same
      iterations per lane, ELBOs within 1e-9 relative;
@@ -88,7 +89,8 @@ Phases, one line each; the first failure exits non-zero:
      plain=True (0 flips, no ELBO worse than 1e-4 relative; the twins' run
      in a process of its own beside the phase's other runs); main with
      --method svi and single_vi (finite ELBOs, completeness >= 0.95) and
-     the median ELBO gap between them;
+     the median ELBO gap between them; in a process of its own in the
+     route pool after phase 13;
  13. the multi-field path at benchmark/run_multifield.py's size of
      record, through the port's runner (benchmark/multifield.run_pass): 8
      fields x 128 sources on 512 x 512 px (field f from seed 7 + 1000 f)
@@ -124,22 +126,45 @@ Phases, one line each; the first failure exits non-zero:
      phases 10 and 14;
  16. the farm worker (python -m celeste_jl_tpu_torch.worker's main, f64,
      pipelined) on phase 11's SDSS files (kept under build/ until then),
-     its box split 2 x 2, two boxes a group; then the same command in a
-     process of its own on the same workdir (the resume). Prints
+     its box split 2 x 1, two boxes a group (one schedule); then the same
+     command in a process of its own on the same workdir (the resume).
+     Prints
      sources/s and each group's load, detect and infer seconds. Bars:
      every box saved, each of phase 11's targets in exactly one box's
      file, completeness >= 0.95 and type accuracy >= 0.90 over the union,
      0 failures, the resume completing 0 boxes, K1-K3 and K3 at D = 12
      (the PSF fits, field-center and per-source, from the worker's
      report) launched. It runs in a process of its own beside phases 10,
-     14 and 15.
-Each phase prints its wall time; phases 10, 14, 15 and 16 run together
-after 13 and print one. The line before the last is the kernels'
-JSON record (each kernel's launches counted on its path: phase 3 for K1-K3,
-6 for K4, 8 for K2a/K2b, `field_launches` on phase 9's joint run,
-`app_launches` on phase 11's, `multifield_launches` on phase 13's,
-`galsim_launches` on phase 15's and `farm_launches` on phase 16's worker
-run; its
+     14 and 15;
+ 17. the science runners and grad_mode="analytic":
+     a. the MCMC-vs-VI experiment at full width
+        (experiments/mcmc_experiment: 16 prior-drawn sources on 200 x 200
+        px, joint VI through K1-K3, AIS through K4 at 50 temperatures x 10
+        samples, f32), then mcmc_figures' tables. Bars: every file
+        written, mc.csv a row a source with finite lnZs, finite VI ELBOs,
+        K1-K4 launched, within_2_sd >= within_1_sd >= within_half_sd in
+        every row. Its joint VI and its AIS (independent: both start
+        from the truth) run in two processes of the route pool;
+     b. benchmark/bench_elbo at 512 sources on 32 x 32 tiles, f32, 3
+        repeats: its JSON lines, every value finite;
+     c. phase 4's 64 sources in f64 with grad_mode="analytic" against
+        phase 4's autograd fit (0 flips, no ELBO further than 1e-6
+        relative), then phase 3's 1024 sources in f32 with the analytic
+        mode: fits/s beside phase 3's;
+     d. results_to_fits over phase 16's result files: one row a target;
+     e. benchmark/calibration on galsim.CI_CASES at one seed (f64), and
+     f. benchmark/svi_compare at 32 sources on 256 px, one pass: their
+        tables and JSON rows, K1-K3 launched; e and f one after the other
+        in a process of the route pool.
+Each phase prints its wall time; phases 7, 10, 12, 14, 15, 16, 17a, 17e
+and 17f run together after 13 and print one. The line before the last is the
+kernels' JSON record (each kernel's launches counted on its path: phase 3
+for K1-K3, 6 for K4, 8 for K2a/K2b, `field_launches` on phase 9's joint
+run, `app_launches` on phase 11's, `multifield_launches` on phase 13's,
+`galsim_launches` on phase 15's, `farm_launches` on phase 16's worker
+run, and `experiment_launches`, `bench_elbo_launches`,
+`analytic_launches`, `calibration_launches` and `svi_compare_launches`
+on phase 17's; its
 bound from this run's shapes at the H100's published f32 and memory
 peaks); the last line is {"ok": true, "device": {...}}. The app's files go
 to a directory under build/, removed at the end. Imports nothing of JAX.
@@ -167,6 +192,8 @@ K4_F32_TOL = 2e-4     # tests/test_pallas_render.py:70
 SPLIT_F64_TOL = 1e-11  # of ||H||, as K2's sweep in phase 2
 COVERAGE_BAR = 0.85   # 2-sd coverage; the JAX run gave 0.906-0.984
 SPLIT_ELBO_TOL = 1e-9
+# phase 17c: analytic against autograd, f64 (tests/test_analytic_grad.py:77)
+ANALYTIC_ELBO_TOL = 1e-6
 # phase 9's quality bars: benchmark/run_field.py's score on its field of
 # record (the JAX package's runs reached 0.977 and 0.935,
 # benchmark/field_results.md)
@@ -570,7 +597,8 @@ def phase_slice(device="cuda", n_sources=1024, tile=32, rec=None):
     """The fit at full width. Prints each stage's batch and launches (the
     unconverged lanes finish in a power-of-two bucket); with `rec` (phase
     2's records), K2 and K3 are checked and timed at that bucket too, and
-    at B = 1 (`floor_ms`: their chains of dependent steps alone)."""
+    at B = 1 (`floor_ms`: their chains of dependent steps alone). Returns
+    (the launches, fits/s)."""
     import torch
 
     from celeste_jl_tpu_torch.ops import eigh, refresh, tr
@@ -638,7 +666,7 @@ def phase_slice(device="cuda", n_sources=1024, tile=32, rec=None):
             rec[name]["floor_ms"] = r["device_ms"]
             print(f"phase 3: {name} at B=1 (its dependency chain alone): "
                   f"{r['device_ms']:.4f} ms on the card", flush=True)
-    return launches
+    return launches, n_sources / wall
 
 
 def phase_compare(device="cuda", n_sources=64, tile=32):
@@ -646,7 +674,8 @@ def phase_compare(device="cuda", n_sources=64, tile=32):
     twins. The bar is held in f64: in f32 a lane's final ELBO carries
     rounding noise of ~1e-4 relative on 32x32 tiles, so either f32 route
     lands within that noise of the other and near-tie star/galaxy lanes
-    may swap; the f32 comparison is printed beside it."""
+    may swap; the f32 comparison is printed beside it. Returns the f64
+    kernel-route fit (phase 17c's autograd side)."""
     import torch
 
     from celeste_jl_tpu_torch.synthetic import synthetic_patch_batch
@@ -660,6 +689,8 @@ def phase_compare(device="cuda", n_sources=64, tile=32):
         p = patches.to(device, dtype)
         rk = fit_sources_compacted(vp0, p, config=cfg)
         rp = fit_sources_compacted(vp0, p, config=cfg, plain=True)
+        if dtype == torch.float64:
+            f64 = rk
         flips = int(np.sum((rk.vp[:, 26].cpu().numpy() > 0.5)
                            != (rp.vp[:, 26].cpu().numpy() > 0.5)))
         ek = rk.elbo.double().cpu().numpy()
@@ -676,6 +707,7 @@ def phase_compare(device="cuda", n_sources=64, tile=32):
                   "phase 4: " + msg)
         print("phase 4: " + msg, flush=True)
     print("phase 4 ok", flush=True)
+    return f64
 
 
 def _phase_clock(n, t0):
@@ -2282,30 +2314,65 @@ def _one_thread(fn, *args, **kwargs):
 
 
 def phase_routes(device="cuda", field=None, multi=None, galsim=None,
-                 farm=None):
+                 farm=None, experiment=None, runners=None, mcmc=None,
+                 app=None):
     """Phases 10 and 14 at once, each run in a process of its own (seven),
-    and phases 15 and 16 beside them when `galsim` and `farm` are given:
-    all are host-bound f64 runs, so side by side they take about the
-    longest of them. field: phase_field_routes' keyword arguments
-    (defaults: 16 sources on 181 x 181 px, seed 7); multi:
-    phase_multifield_routes' (defaults: two 8-source fields on 128 x 128
-    px, seeds 7 and 1007); galsim: phase_galsim's ({} for its defaults);
-    farm: phase_farm's (with `field`, phase 11's). Returns (phase 15's
-    launches, phase 16's), {} for a phase not run."""
+    and beside them, each in a process of its own when its argument is
+    given: phase 7 (the AIS through K4 and its twin), phase 12 (the app's
+    routes), phase 15, phase 16, phase 17a's two stages (the MCMC
+    experiment's joint VI and its AIS, each in a process, then its files
+    and tables here) and phases 17e and 17f one after the other (the
+    calibration and SVI runners). All are host-bound runs with no timed record, so side by
+    side they take about the longest of them. field: phase_field_routes'
+    keyword arguments (defaults: 16 sources on 181 x 181 px, seed 7);
+    multi: phase_multifield_routes' (defaults: two 8-source fields on 128
+    x 128 px, seeds 7 and 1007); mcmc: phase_mcmc_routes' on
+    mcmc_scene(device); app: phase_app_routes'; galsim: phase_galsim's
+    ({} for its defaults); farm: phase_farm's (with `field`, phase 11's);
+    experiment: experiment_stage's; runners: {"calibration":
+    phase_calibration's, "svi_compare": phase_svi_compare's}. Returns
+    {phase: its launches} for the phases run of 15, 16, 17a, 17e and 17f
+    (keys "galsim", "farm", "experiment", "calibration",
+    "svi_compare")."""
     field, multi = dict(field or {}), dict(multi or {})
-    n = (2 + len(MULTIFIELD_ROUTE_ITEMS) + (galsim is not None)
-         + (farm is not None))
+    stage = lambda name: (None if experiment is None
+                          else dict(experiment, stage=name))
+    jobs = {"farm": (phase_farm, farm), "galsim": (phase_galsim, galsim),
+            "experiment_vi": (experiment_stage, stage("vi")),
+            "experiment_mcmc": (experiment_stage, stage("mcmc")),
+            "runners": (_science_runners, runners),
+            "mcmc": (_mcmc_routes, mcmc), "app": (phase_app_routes, app)}
+    jobs = {k: v for k, v in jobs.items() if v[1] is not None}
+    n = 2 + len(MULTIFIELD_ROUTE_ITEMS) + len(jobs)
     with _route_pool(n) as pool:
-        f16 = (pool.submit(_one_thread, phase_farm, device=device, **farm)
-               if farm is not None else None)
-        f15 = (pool.submit(_one_thread, phase_galsim, device, **galsim)
-               if galsim is not None else None)
+        futures = {k: pool.submit(_one_thread, fn, device=device, **kw)
+                   for k, (fn, kw) in jobs.items()}
         f10 = _submit_field_routes(pool, device, **field)
         f14 = _submit_multifield_routes(pool, device, **multi)
         _check_field_routes(f10, device)
         _check_multifield_routes(f14, len(multi.get("seeds", (7, 1007))))
-        return (f15.result() if f15 is not None else {},
-                f16.result() if f16 is not None else {})
+        out = {k: f.result() for k, f in futures.items()}
+    out.update(out.pop("runners", {}))
+    out.pop("mcmc", None)
+    out.pop("app", None)
+    if experiment is not None:
+        out["experiment"] = phase_experiment(
+            device, parts=(out.pop("experiment_vi"),
+                           out.pop("experiment_mcmc")))
+    return out
+
+
+def _mcmc_routes(device="cuda", **kw):
+    """Phase 7 on its own copy of bench_mcmc.py's scene (a route process
+    of phase_routes)."""
+    phase_mcmc_routes(mcmc_scene(device), device, **kw)
+
+
+def _science_runners(device="cuda", calibration=None, svi_compare=None):
+    """Phases 17e and 17f one after the other (one process of the route
+    pool): {"calibration": launches, "svi_compare": launches}."""
+    return {"calibration": phase_calibration(device, **(calibration or {})),
+            "svi_compare": phase_svi_compare(device, **(svi_compare or {}))}
 
 
 def _joint_turn(kind, joint, tmp):
@@ -2623,6 +2690,346 @@ def phase_farm(field, device="cuda", grid=(2, 2), group=2, config=None,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the science runners and grad_mode="analytic"
+# ---------------------------------------------------------------------------
+
+class Launches:
+    """Every kernel wrapper's launch count, set to 0 on entry; `counts()`
+    reads them (the kernels of SOURCES, by name)."""
+
+    def __enter__(self):
+        from celeste_jl_tpu_torch.ops import eigh, refresh, render, tr
+
+        self.fns = {"refresh": refresh.pixel_terms,
+                    "jacobi_sweep": eigh.jacobi_sweep,
+                    "tr_subproblem": tr.tr_subproblem,
+                    "mixture_poisson_ll": render.mixture_poisson_ll,
+                    "jacobi_sweep_a": eigh.jacobi_sweep_a,
+                    "jacobi_replay_q": eigh.jacobi_replay_q}
+        for fn in self.fns.values():
+            fn.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+    def counts(self):
+        return {k: fn.launches for k, fn in self.fns.items()}
+
+
+def _check_launched(label, counts, names, device):
+    if device == "cuda":
+        check(all(counts[k] > 0 for k in names),
+              f"{label}: a kernel of the path never launched: {counts}")
+
+
+def experiment_stage(stage, device="cuda", n_sources=16, size=200,
+                     seed=11, temperatures=0, samples=0, newton_config=None,
+                     chain_length=25):
+    """One stage of phase 17a on the experiment's field (drawn here from
+    its seed): "vi", the joint VI (experiments/mcmc_experiment.vi_stage,
+    K1-K3), or "mcmc", the AIS (mcmc_stage, K4), f32 on the card. Returns
+    a dict: the stage's outputs, its seconds and its launches. The two
+    stages are independent (both start from the truth), so the route pool
+    runs them in two processes."""
+    import torch
+
+    from celeste_jl_tpu_torch.experiments import mcmc_experiment as me
+
+    dtype = torch.float32 if device == "cuda" else torch.float64
+    t0 = time.perf_counter()
+    truth, images = me.experiment_field(n_sources, size, seed,
+                                        torch.device(device))
+    cfg = me.ladder_config(None, temperatures, samples)
+    t1 = time.perf_counter()
+    with Launches() as rec:
+        if stage == "vi":
+            out = dict(zip(("vi", "vi_elbos"), me.vi_stage(
+                truth, images, cfg, device=device, dtype=dtype,
+                newton_config=newton_config)))
+        else:
+            out = dict(zip(("mc", "chains"), me.mcmc_stage(
+                truth, images, cfg, seed, device=device, dtype=dtype,
+                chain_length=chain_length)))
+    return dict(out, truth=truth, render_s=t1 - t0,
+                seconds=time.perf_counter() - t1, launches=rec.counts(),
+                ladder=(cfg.num_ais_temperatures, cfg.num_ais_samples),
+                dtype=str(dtype)[6:])
+
+
+def phase_experiment(device="cuda", parts=None, out=None, bars=True, **kw):
+    """17a. The MCMC-vs-VI experiment at its full width (experiments/
+    mcmc_experiment: 16 prior-drawn sources on 200 x 200 px, joint VI
+    through K1-K3, AIS through K4 at Config()'s 50 temperatures x 10
+    samples, f32): its two stages (experiment_stage; `parts`, their
+    results when the route pool ran them, else run here one after the
+    other), its files (write_outputs), then mcmc_figures' tables from the
+    files. Prints each stage's seconds, the MCMC table's p(star), the
+    error comparison, the AUCs and the calibration table. Bars: every file
+    written, mc.csv one row a source with finite lnZs, finite VI ELBOs,
+    K1-K3 and K4 launched, and within_2_sd >= within_1_sd >=
+    within_half_sd in every row of both methods. kw: experiment_stage's
+    (a shorter CPU rehearsal). Returns the launches."""
+    import contextlib
+    import io
+    import shutil
+
+    from celeste_jl_tpu_torch.experiments import mcmc_experiment as me
+    from celeste_jl_tpu_torch.experiments import mcmc_figures
+
+    vi, mc = parts or (experiment_stage("vi", device, **kw),
+                       experiment_stage("mcmc", device, **kw))
+    out = out or os.path.join(ROOT, "build", "mcmc_experiment")
+    shutil.rmtree(out, ignore_errors=True)
+    me.write_outputs(out, vi["truth"], vi["vi"], mc["mc"], mc["chains"])
+    launches = {k: vi["launches"][k] + mc["launches"][k]
+                for k in vi["launches"]}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        figs = mcmc_figures.main(["--results-dir", out])
+    mc_df, cal = mc["mc"], figs["calibration"]
+    n_sources = len(vi["truth"])
+    print(f"phase 17a: experiment, {n_sources} sources, AIS "
+          f"{mc['ladder'][0]} temperatures x {mc['ladder'][1]} samples, "
+          f"{mc['dtype']}: render {vi['render_s']:.3f} s, joint VI "
+          f"{vi['seconds']:.3f} s, AIS {mc['seconds']:.3f} s; mc p(star) "
+          + " ".join(f"{v:.3f}" for v in mc_df["is_star"]) + "; launches "
+          f"{launches}", flush=True)
+    for line in buf.getvalue().splitlines():
+        if line.startswith("matplotlib"):
+            print("phase 17a: " + line, flush=True)
+    print("phase 17a error comparison (VI first, MCMC second):\n"
+          + figs["scores"].to_markdown(floatfmt=".6g"), flush=True)
+    print(f"phase 17a: AUC {figs['auc']}; calibration:\n"
+          + cal.to_markdown(floatfmt=".4f"), flush=True)
+    if bars:
+        names = ("truth.csv", "vi.csv", "mc.csv", "vi_posterior.csv",
+                 "mc_samples.npz", "calibration.csv")
+        missing = [n for n in names if not os.path.exists(
+            os.path.join(out, n))]
+        check(not missing, f"phase 17a: files not written: {missing}")
+        finite = [bool(np.all(np.isfinite(mc_df[k])))
+                  for k in ("star_lnZ", "gal_lnZ")]
+        check(len(mc_df) == n_sources and all(finite),
+              f"phase 17a: mc.csv {len(mc_df)} rows, finite lnZs {finite}")
+        check(bool(np.all(np.isfinite(vi["vi_elbos"]))),
+              "phase 17a: non-finite VI ELBOs")
+        order = bool(np.all((cal["within_2_sd"] >= cal["within_1_sd"])
+                            & (cal["within_1_sd"] >= cal["within_half_sd"])))
+        check(order and set(cal["method"]) == {"vi", "mc"},
+              "phase 17a: within_2_sd >= within_1_sd >= within_half_sd "
+              "does not hold in every row")
+        _check_launched("phase 17a", launches,
+                        FIELD_KERNELS + ("mixture_poisson_ll",), device)
+    shutil.rmtree(out, ignore_errors=True)
+    print("phase 17a ok", flush=True)
+    return launches
+
+
+def phase_bench_elbo(device="cuda", n_sources=512, tile=32, repeats=2,
+                     newton_config=None):
+    """17b. benchmark/bench_elbo.py's runner at its defaults (512 sources
+    on 32 x 32 tiles, f32; `repeats` timed calls a metric after the first,
+    2 where the runner's default is 5: a single fit takes ~5 s): its JSON
+    lines, every value finite. Returns (its lines, the launches)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from celeste_jl_tpu_torch.benchmark import bench_elbo
+
+    env = {"BENCH_ELBO_SOURCES": str(n_sources), "BENCH_ELBO_TILE": str(tile),
+           "BENCH_ELBO_REPEATS": str(repeats)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    buf = io.StringIO()
+    try:
+        with Launches() as rec, contextlib.redirect_stdout(buf):
+            lines = bench_elbo.main(
+                [], device=device,
+                dtype=torch.float32 if device == "cuda" else torch.float64,
+                newton_config=newton_config)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = rec.counts()
+    for line in lines:
+        print("phase 17b json: " + json.dumps(line), flush=True)
+    check(all(np.isfinite(l["value"]) and l["value"] > 0 for l in lines),
+          f"phase 17b: a value is not finite: {lines}")
+    _check_launched("phase 17b", launches, ("refresh",), device)
+    print(f"phase 17b ok: launches {launches}", flush=True)
+    return lines, launches
+
+
+def phase_analytic(device="cuda", n_sources=64, n_batch=1024, tile=32,
+                   ad_fits_per_s=None, ad_f64=None):
+    """17c. grad_mode="analytic" on the card. Phase 4's 64 sources fitted
+    in f64 with bench.py's configuration, analytic against autograd: 0
+    classification flips and no lane's ELBO further than 1e-6 relative
+    (tests/test_analytic_grad.py:77); ad_f64, phase 4's fit of the same
+    sources through the kernels, is the autograd side when given. Then the
+    1024-source batch of phase 3 in f32 with the analytic mode: its fits/s
+    beside phase 3's (ad_fits_per_s, the autograd route's from this call),
+    accuracy and launches. Returns the f32 run's launches."""
+    import torch
+
+    from celeste_jl_tpu_torch.synthetic import synthetic_patch_batch
+    from celeste_jl_tpu_torch.vi.optimize import fit_sources_compacted
+
+    cfg = bench_config()
+    an_cfg = cfg._replace(grad_mode="analytic")
+    _, vp0s, patches = synthetic_patch_batch(n_sources, tile=tile, seed=1,
+                                             dtype=np.float64, device=device)
+    vp0 = torch.as_tensor(vp0s, device=device)
+    ad = (ad_f64 if ad_f64 is not None
+          else fit_sources_compacted(vp0, patches, config=cfg))
+    an = fit_sources_compacted(vp0, patches, config=an_cfg)
+    flips = int(np.sum((ad.vp[:, 26].cpu().numpy() > 0.5)
+                       != (an.vp[:, 26].cpu().numpy() > 0.5)))
+    ea, en = ad.elbo.cpu().numpy(), an.elbo.cpu().numpy()
+    rel = np.abs(en - ea) / np.abs(ea)
+    msg = (f"phase 17c: {n_sources} sources f64, analytic vs autograd: "
+           f"{flips} flips, ELBO rel worst {rel.max():.3g}, mean "
+           f"{rel.mean():.3g}; mean iters "
+           f"{float(an.iters.double().mean()):.2f} vs "
+           f"{float(ad.iters.double().mean()):.2f}")
+    check(flips == 0 and bool(np.all(rel <= ANALYTIC_ELBO_TOL)),
+          msg + f" (bars: 0 flips, worst <= {ANALYTIC_ELBO_TOL:g})")
+    print(msg, flush=True)
+
+    catalog, vp0s, patches = synthetic_patch_batch(n_batch, tile=tile, seed=1,
+                                                   device=device)
+    vp0 = torch.as_tensor(vp0s, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    with Launches() as rec:
+        t0 = time.perf_counter()
+        res = fit_sources_compacted(vp0, patches, config=an_cfg)
+        elbo = res.elbo.cpu().numpy()
+        wall = time.perf_counter() - t0
+    launches = rec.counts()
+    truth = np.array([ce.is_star for ce in catalog])
+    acc = float(np.mean((res.vp[:, 26].cpu().numpy() > 0.5) == truth))
+    check(bool(np.all(np.isfinite(elbo))),
+          f"phase 17c: {int(np.sum(~np.isfinite(elbo)))} non-finite ELBOs")
+    _check_launched("phase 17c", launches, FIELD_KERNELS, device)
+    ad_txt = (f"{ad_fits_per_s:.2f}" if ad_fits_per_s is not None
+              else "not run")
+    print(f"phase 17c: {n_batch} sources f32 with grad_mode='analytic' in "
+          f"{wall:.3f} s = {n_batch / wall:.2f} fits/s (autograd, phase 3: "
+          f"{ad_txt} fits/s); mean iters "
+          f"{float(res.iters.double().mean()):.2f}; converged {float(res.converged.double().mean()):.4f}; "
+          f"star/galaxy accuracy {acc:.4f}; launches {launches}", flush=True)
+    print("phase 17c ok", flush=True)
+    return launches
+
+
+def phase_results_to_fits(field, device="cuda"):
+    """17d. results_to_fits over phase 16's result files (field: phase
+    11's, with the farm's workdir): one FITS row a saved target."""
+    import glob
+
+    from celeste_jl_tpu_torch.io.fits import open_fits
+    from celeste_jl_tpu_torch.main import load_results
+    from celeste_jl_tpu_torch.results_to_fits import results_to_fits
+
+    files = sorted(glob.glob(os.path.join(field["dir"], "farm", "**",
+                                          "celeste-*.npz"), recursive=True))
+    check(bool(files), "phase 17d: no result files of phase 16")
+    out = os.path.join(field["dir"], "catalog.fits")
+    n = results_to_fits(files, out)
+    saved = sum(sum(not r.is_sky_bad for r in load_results(f))
+                for f in files)
+    data = open_fits(out)[1].data
+    check(n == saved == len(data["ra"]) == len(field["targets"]),
+          f"phase 17d: {n} rows written, {saved} saved targets, "
+          f"{len(data['ra'])} rows read, {len(field['targets'])} targets")
+    print(f"phase 17d ok: {len(files)} result files -> {n} FITS rows, "
+          f"{len(data)} columns", flush=True)
+
+
+def phase_calibration(device="cuda", names=None, newton_config=None):
+    """17e. benchmark/calibration.py's runner on galsim.CI_CASES at one
+    seed (noise on every scene, joint, f64): its tables and JSON line.
+    Returns the launches."""
+    import contextlib
+    import io
+
+    from celeste_jl_tpu_torch.benchmark import calibration
+    from celeste_jl_tpu_torch.benchmark.galsim import CI_CASES
+
+    old = os.environ.get("CAL_SEEDS")
+    os.environ["CAL_SEEDS"] = "1"
+    buf = io.StringIO()
+    try:
+        with Launches() as rec, contextlib.redirect_stdout(buf):
+            record = calibration.main(
+                ["--scenes", ",".join(names or CI_CASES)], device=device,
+                newton_config=newton_config)
+    finally:
+        if old is None:
+            os.environ.pop("CAL_SEEDS")
+        else:
+            os.environ["CAL_SEEDS"] = old
+    launches = rec.counts()
+    cal = record["calibration"]
+    print(f"phase 17e: calibration, {record['scenes']} scenes x 1 seed, "
+          f"{sum(record['sources'])} sources, {record['wall_s']:.3f} s: "
+          + "; ".join(f"{r['field']} {r['within_half_sd']:.3f} / "
+                      f"{r['within_1_sd']:.3f} / {r['within_2_sd']:.3f}"
+                      for r in cal) + f"; launches {launches}", flush=True)
+    check(bool(cal) and all(np.isfinite(r["within_2_sd"]) for r in cal),
+          f"phase 17e: calibration table {cal}")
+    _check_launched("phase 17e", launches, FIELD_KERNELS, device)
+    print("phase 17e ok", flush=True)
+    return launches
+
+
+def phase_svi_compare(device="cuda", n_sources=32, size=256, steps=500,
+                      newton_config=None):
+    """17f. benchmark/svi_compare.py's runner at 32 sources on 256 px, one
+    pass: its JSON rows (single_vi through K1-K3, svi at pixel fractions
+    1.0, 0.5, 0.25), finite ELBOs. Returns the launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from celeste_jl_tpu_torch.benchmark import svi_compare
+
+    env = {"SVI_SOURCES": str(n_sources), "SVI_SIZE": str(size),
+           "SVI_STEPS": str(steps), "SVI_REPEAT": "1"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    buf = io.StringIO()
+    try:
+        with Launches() as rec, contextlib.redirect_stdout(buf):
+            rows = svi_compare.main(
+                [], device=device,
+                dtype=torch.float32 if device == "cuda" else torch.float64,
+                newton_config=newton_config)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = rec.counts()
+    for r in rows:
+        print("phase 17f json: " + json.dumps(r), flush=True)
+    check(len(rows) == 4 and all(np.isfinite(r["mean_elbo"]) for r in rows),
+          f"phase 17f: rows {rows}")
+    _check_launched("phase 17f", launches, FIELD_KERNELS, device)
+    print("phase 17f ok", flush=True)
+    return launches
+
+
 SOURCES = {
     "refresh": ("celeste_jl_tpu_torch/csrc/refresh.cu",
                 "celeste_jl_tpu/ops/pallas_refresh.py:186"),
@@ -2653,10 +3060,10 @@ def main():
         rec = phase_kernels()
         _phase_clock(2, t0)
         t0 = time.perf_counter()
-        launches = phase_slice(rec=rec)
+        launches, ad_fits_per_s = phase_slice(rec=rec)
         _phase_clock(3, t0)
         t0 = time.perf_counter()
-        phase_compare()
+        ad_f64 = phase_compare()
         _phase_clock(4, t0)
         t0 = time.perf_counter()
         scene = mcmc_scene("cuda")
@@ -2665,9 +3072,6 @@ def main():
         t0 = time.perf_counter()
         launches.update(phase_mcmc(scene))
         _phase_clock(6, t0)
-        t0 = time.perf_counter()
-        phase_mcmc_routes(scene)
-        _phase_clock(7, t0)
         t0 = time.perf_counter()
         launches.update(phase_split_fit())
         _phase_clock(8, t0)
@@ -2678,14 +3082,24 @@ def main():
         app = phase_app(rec=rec, field=app_field)
         _phase_clock(11, t0)
         t0 = time.perf_counter()
-        phase_app_routes()
-        _phase_clock(12, t0)
-        t0 = time.perf_counter()
         multi = phase_multifield()
         _phase_clock(13, t0)
         t0 = time.perf_counter()
-        galsim, farm = phase_routes(galsim={}, farm={"field": app_field})
-        _phase_clock("10, 14, 15 and 16", t0)
+        pool = phase_routes(galsim={}, farm={"field": app_field,
+                                             "grid": (2, 1)},
+                            experiment={}, runners={}, mcmc={}, app={})
+        galsim, farm = pool.pop("galsim"), pool.pop("farm")
+        _phase_clock("7, 10, 12, 14, 15, 16, 17a, 17e and 17f", t0)
+        t0 = time.perf_counter()
+        science = dict(pool, bench_elbo=phase_bench_elbo()[1])
+        _phase_clock("17b", t0)
+        t0 = time.perf_counter()
+        science["analytic"] = phase_analytic(ad_fits_per_s=ad_fits_per_s,
+                                             ad_f64=ad_f64)
+        _phase_clock("17c", t0)
+        t0 = time.perf_counter()
+        phase_results_to_fits(app_field)
+        _phase_clock("17d", t0)
     except PhaseError as e:
         print(f"FAILED: {e}", flush=True)
         return 1
@@ -2698,6 +3112,8 @@ def main():
              field_launches=field.get(k, 0), app_launches=app.get(k, 0),
              multifield_launches=multi.get(k, 0),
              galsim_launches=galsim.get(k, 0), farm_launches=farm.get(k, 0),
+             **{f"{path}_launches": n.get(k, 0)
+                for path, n in science.items()},
              **rec[k])
         for k in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -150,8 +150,10 @@ def test_unported_options_raise():
     vp, tp, _, _ = _batch(2, torch.float64)
     # secular="newton" is ported (ops/tr.tr_subproblem_newton); a secular
     # solver the JAX package does not have still raises
+    # grad_mode="analytic" is ported (tests/test_torch_analytic_grad.py);
+    # a gradient mode the JAX package does not have still raises
     for cfg in (NewtonConfig(tr_solver="cg"), NewtonConfig(secular="halley"),
-                NewtonConfig(grad_mode="analytic")):
+                NewtonConfig(grad_mode="fd")):
         with pytest.raises(NotImplementedError):
             fit_sources(vp, tp, config=cfg)
     with pytest.raises(NotImplementedError):

@@ -26,7 +26,8 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'celeste_jl_tpu', 'yaml'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'celeste_jl_tpu', 'yaml',
+                                    'pandas', 'matplotlib'))
 print(len(mods), bad, mods)
 assert not bad, bad
 """
@@ -34,14 +35,21 @@ assert not bad, bad
 _RUN_MAIN = """
 import runpy, sys
 for mod in ('celeste_jl_tpu_torch', 'celeste_jl_tpu_torch.worker',
-            'celeste_jl_tpu_torch.benchmark.galsim_suite'):
+            'celeste_jl_tpu_torch.benchmark.galsim_suite',
+            'celeste_jl_tpu_torch.experiments.mcmc_experiment',
+            'celeste_jl_tpu_torch.experiments.mcmc_figures',
+            'celeste_jl_tpu_torch.benchmark.bench_elbo',
+            'celeste_jl_tpu_torch.benchmark.calibration',
+            'celeste_jl_tpu_torch.benchmark.svi_compare',
+            'celeste_jl_tpu_torch.results_to_fits'):
     sys.argv = [mod, '--help']
     try:
         runpy.run_module(mod, run_name='__main__')
     except SystemExit as e:
         assert e.code == 0, e.code
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'celeste_jl_tpu', 'yaml'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'celeste_jl_tpu', 'yaml',
+                                    'pandas', 'matplotlib'))
 print(bad)
 assert not bad, bad
 """
@@ -55,16 +63,18 @@ def _run(args, cwd):
 
 
 def test_port_modules_import_without_jax():
-    """No module named jax, jax.*, celeste_jl_tpu, celeste_jl_tpu.* or yaml
-    is loaded after every port module (the runners and the worker CLI
-    among them) and chip_smoke are imported, nor after `python -m
-    celeste_jl_tpu_torch --help`, `python -m celeste_jl_tpu_torch.worker
-    --help` and the GalSim runner's --help have run."""
+    """No module named jax, jax.*, celeste_jl_tpu, celeste_jl_tpu.*, yaml,
+    pandas or matplotlib is loaded after every port module (the runners
+    and the worker CLI among them) and chip_smoke are imported, nor after
+    `python -m celeste_jl_tpu_torch --help`, `python -m
+    celeste_jl_tpu_torch.worker --help` and every runner's --help
+    (GalSim suite, MCMC experiment and figures, bench_elbo, calibration,
+    SVI compare, results_to_fits) have run."""
     # a subprocess: tests/conftest.py has imported jax into this one
     proc = _run(["-c", _IMPORT_ALL], ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 53, proc.stdout
+    assert n_modules >= 60, proc.stdout
     for m in ("utils.log", "utils.telemetry", "utils.coordinates",
               "utils.device", "io.dataset", "io.fits", "io.wcs", "io.sdss",
               "io.decals", "detection._native", "detection.background",
@@ -75,13 +85,19 @@ def test_port_modules_import_without_jax():
               "benchmark.galsim", "benchmark.bundle",
               "benchmark.independent_render", "benchmark.galsim_suite",
               "benchmark.worker_farm", "models.fit_priors",
-              "parallel.multinode", "worker"):
+              "parallel.multinode", "worker", "experiments.mcmc_experiment",
+              "experiments.mcmc_figures", "benchmark.bench_elbo",
+              "benchmark.calibration", "benchmark.svi_compare",
+              "results_to_fits"):
         assert f"celeste_jl_tpu_torch.{m}'" in proc.stdout, m
     proc = _run(["-c", _RUN_MAIN], ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "--method" in proc.stdout and "svi" in proc.stdout
     assert "--workdir" in proc.stdout and "--group-boxes" in proc.stdout
     assert "--scenes" in proc.stdout and "--radius" in proc.stdout
+    assert "--num-sources" in proc.stdout and "--results-dir" in proc.stdout
+    assert "BENCH_ELBO_SOURCES" in proc.stdout and "--out" in proc.stdout
+    assert "output FITS path" in proc.stdout
 
 
 def test_chip_smoke_fails_without_cuda_or_checkout(tmp_path):
@@ -106,7 +122,9 @@ def test_chip_smoke_phases_run_on_cpu_twins(monkeypatch):
     import chip_smoke as cs
 
     rec = cs.phase_kernels(device="cpu", k1_sets=((2, 16), (1, 40)), n_mats=4)
-    launches = cs.phase_slice(device="cpu", n_sources=4, tile=16, rec=rec)
+    launches, fits_per_s = cs.phase_slice(device="cpu", n_sources=4,
+                                          tile=16, rec=rec)
+    assert fits_per_s > 0
     # the fit's stage 2 runs (in place, B = 4): K2 and K3 checked there too
     assert rec["jacobi_sweep"]["stage2"]["B"] == 4
     assert rec["tr_subproblem"]["stage2"]["bound_ms"] > 0
@@ -170,12 +188,13 @@ def test_entry_points_match_the_c_signatures():
 
 
 def test_chip_smoke_app_phases_run_on_cpu_twins(monkeypatch):
-    """Phases 11, 12 and 16 of chip_smoke.py (the survey app and the farm
-    worker) on a 96 x 64 and a 64 x 64 SDSS field of a few sources on the
-    CPU, the schedules cut short (SVI to 50 steps, main's single_vi fits
-    to 3 refresh cycles): the field writer, main, the scorer through the
-    TAN WCS, the route comparisons, and the worker CLI over phase 11's
-    files with its resume, not the kernels."""
+    """Phases 11, 12, 16 and 17d of chip_smoke.py (the survey app, the farm
+    worker and results_to_fits over its files) on a 96 x 64 and a 64 x 64
+    SDSS field of a few sources on the CPU, the schedules cut short (SVI
+    to 50 steps, main's single_vi fits to 3 refresh cycles): the field
+    writer, main, the scorer through the TAN WCS, the route comparisons,
+    the worker CLI over phase 11's files with its resume, and the FITS
+    catalog of its files, not the kernels."""
     import functools
     import shutil
 
@@ -213,6 +232,8 @@ def test_chip_smoke_app_phases_run_on_cpu_twins(monkeypatch):
                              newton_config=NewtonConfig(max_iters=3),
                              bars=False)
         assert farm == {k: 0 for k in cs.FIELD_KERNELS}
+        # phase 17d: the farm's result files as one FITS catalog
+        cs.phase_results_to_fits(field, device="cpu")
     finally:
         if field:
             shutil.rmtree(field["dir"], ignore_errors=True)
@@ -246,10 +267,10 @@ def test_chip_smoke_multifield_phases_run_on_cpu_twins():
     assert fs.multi_field_classes() > 0
     assert handle["schedule_s"] > 0 and handle["stage_s"] > 0
     # phases 14 and 15 as main runs them, in one pool with phase 10's runs
-    galsim, farm = cs.phase_routes(
+    out = cs.phase_routes(
         device="cpu", field=dict(n_sources=4, size=48, config=short),
         multi=dict(n_sources=6, size=48, config=short, newton_config=newton,
                    bars=False),
         galsim=dict(names=["simple_star", "star_with_noise"], radius=8.0,
                     newton_config=NewtonConfig(max_iters=2), bars=False))
-    assert galsim == {k: 0 for k in cs.FIELD_KERNELS} and farm == {}
+    assert out == {"galsim": {k: 0 for k in cs.FIELD_KERNELS}}

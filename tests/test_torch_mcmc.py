@@ -354,4 +354,4 @@ def test_mcmc_to_df(ais_run):
     for c in ("ra", "dec", "is_star", "flux_r_nmgy", "color_ug",
               "log_flux_r_stderr", "star_lnZ", "gal_lnZ", "max_psrf"):
         assert c in df.columns, c
-    assert df.iloc[1]["gal_radius_px"] > 0
+    assert df["gal_radius_px"][1] > 0
