@@ -88,14 +88,13 @@ def vi_stage(truth, images, cfg, *, device, dtype, newton_config=None):
     return celeste_to_df(results), np.array([r.elbo for r in results])
 
 
-def mcmc_stage(truth, images, cfg, seed, *, device, dtype, chain_length=25):
+def mcmc_stage(truth, images, cfg, seed, *, device, dtype):
     """Batched AIS/MCMC over the catalog. Returns (the MCMC Table, the
     chains as {"star_i" | "gal_i": (draws, D)})."""
     Log.info(f"experiment: batched AIS/MCMC over {len(truth)} sources "
              f"({cfg.num_ais_temperatures} temps x {cfg.num_ais_samples})")
     results = one_node_mcmc_infer(truth, images, config=cfg, seed=seed,
-                                  device=device, dtype=dtype,
-                                  num_samples_per_chain=chain_length)
+                                  device=device, dtype=dtype)
     chains = {f"{m}_{i}": np.asarray(r[f"{m}_samples"])
               for m in ("star", "gal") for i, r in enumerate(results)}
     return mcmc_to_df(results, num_chains=cfg.num_ais_samples), chains
@@ -127,30 +126,38 @@ def write_outputs(output_dir, truth, vi_df, mc_df, chains):
 def run(num_sources=16, size=200, seed=11, temperatures=0, samples=0,
         output_dir=os.path.join("build", "mcmc_experiment"), *,
         device="cuda", dtype=torch.float32, config=None, newton_config=None,
-        chain_length=25):
-    """The experiment; returns a dict of the tables (truth, vi, mc,
-    vi_posterior), the files written, the VI ELBOs, each stage's seconds
-    and the AIS ladder. config (default Config(); temperatures and
-    samples, where not 0, replace its ladder), newton_config (default
-    NewtonConfig()) and chain_length (each AIS draw's posterior chain, 25
-    as the JAX runner runs) shorten a CPU rehearsal."""
+        stage=None):
+    """The experiment; returns a dict of the truth catalog (catalog), each
+    stage's seconds (render, vi, mcmc), the AIS ladder and, of the stages
+    run, the VI Table and ELBOs (vi, vi_elbos) and the MCMC Table and
+    chains (mc, chains). config (default Config(); temperatures and
+    samples, where not 0, replace its ladder) and newton_config (default
+    NewtonConfig()) shorten a CPU rehearsal. stage None runs both stages
+    and writes the files (adding files, truth, vi_posterior); "vi" or
+    "mcmc" runs that stage alone and writes nothing. The stages are
+    independent (both start from the truth), so a caller may run them in
+    two processes and write their parts with write_outputs."""
     dev = resolve(device)
     t0 = time.perf_counter()
     truth, images = experiment_field(num_sources, size, seed, dev)
     cfg = ladder_config(config, temperatures, samples)
-    t1 = time.perf_counter()
-    vi_df, vi_elbos = vi_stage(truth, images, cfg, device=dev, dtype=dtype,
-                               newton_config=newton_config)
-    t2 = time.perf_counter()
-    mc_df, chains = mcmc_stage(truth, images, cfg, seed, device=dev,
-                               dtype=dtype, chain_length=chain_length)
-    t3 = time.perf_counter()
-    files, truth_df, vi_post = write_outputs(output_dir, truth, vi_df, mc_df,
-                                             chains)
-    return dict(truth=truth_df, vi=vi_df, mc=mc_df, vi_posterior=vi_post,
-                files=files, vi_elbos=vi_elbos,
-                seconds=dict(render=t1 - t0, vi=t2 - t1, mcmc=t3 - t2),
-                ladder=(cfg.num_ais_temperatures, cfg.num_ais_samples))
+    out = dict(catalog=truth, seconds=dict(render=time.perf_counter() - t0),
+               ladder=(cfg.num_ais_temperatures, cfg.num_ais_samples))
+    if stage in (None, "vi"):
+        t1 = time.perf_counter()
+        out["vi"], out["vi_elbos"] = vi_stage(
+            truth, images, cfg, device=dev, dtype=dtype,
+            newton_config=newton_config)
+        out["seconds"]["vi"] = time.perf_counter() - t1
+    if stage in (None, "mcmc"):
+        t1 = time.perf_counter()
+        out["mc"], out["chains"] = mcmc_stage(truth, images, cfg, seed,
+                                              device=dev, dtype=dtype)
+        out["seconds"]["mcmc"] = time.perf_counter() - t1
+    if stage is None:
+        out["files"], out["truth"], out["vi_posterior"] = write_outputs(
+            output_dir, truth, out["vi"], out["mc"], out["chains"])
+    return out
 
 
 def main(argv=None, *, device="cuda", dtype=torch.float32):

@@ -328,12 +328,10 @@ def potential_scale_reduction(chains):
 
 
 def one_node_mcmc_infer(catalog, images, target_sources=None, config=None,
-                        seed=0, device="cuda", dtype=torch.float32,
-                        num_samples_per_chain=25):
+                        seed=0, device="cuda", dtype=torch.float32):
     """MCMC (AIS) over every target source as one batched program;
     neighbors rendered as fixed background from their catalog entries
-    (ParallelRun.jl:504-543, threads -> lanes). num_samples_per_chain:
-    the posterior slice chain's length after each AIS draw."""
+    (ParallelRun.jl:504-543, threads -> lanes)."""
     config = config or Config()
     targets = (list(range(len(catalog))) if target_sources is None
                else list(target_sources))
@@ -341,9 +339,8 @@ def one_node_mcmc_infer(catalog, images, target_sources=None, config=None,
     results = run_ais_batched(
         catalog, images, targets=targets,
         num_temperatures=config.num_ais_temperatures,
-        num_samples=config.num_ais_samples,
-        num_samples_per_chain=num_samples_per_chain, seed=seed,
-        config=config, device=device, dtype=dtype)
+        num_samples=config.num_ais_samples, seed=seed, config=config,
+        device=device, dtype=dtype)
     wall = time.perf_counter() - t0
     log.info(f"mcmc: {len(targets)} sources in one batched AIS program "
              f"({wall:.2f}s, {len(targets) / max(wall, 1e-9):.2f} "

@@ -2,11 +2,14 @@
 
 `nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
 -fPIC` compiles each csrc/*.cu to an object, one nvcc process per source,
-all started together; the objects are linked into one shared library with
-a plain C interface, at first use, into build/kernels/ at the repository
-root, keyed by a hash of the sources and flags; ctypes loads it. Nothing
-outside the repository's sources is built or fetched. Import builds
-nothing: the CPU tests import every module on machines without nvcc.
+all started together (the Jacobi sweeps' two sources, which instantiate
+their kernels for 31 matrix sizes, with `--split-compile=0`, their device
+code compiled in parallel parts); the objects are linked into one shared
+library with a plain C interface, at first use, into build/kernels/ at
+the repository root, keyed by a hash of the sources and flags; ctypes
+loads it. Nothing outside the repository's sources is built or fetched.
+Import builds nothing: the CPU tests import every module on machines
+without nvcc.
 
 Each entry point is `celeste_<kernel>_<f32|f64>(pointers..., ints...,
 stream)` and returns the launch's cudaGetLastError() as an int. Pointer
@@ -30,6 +33,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+# the sources compiled in parallel parts, on every core: alone they take
+# most of the build
+SPLIT_COMPILE = ("jacobi_sweep.cu", "jacobi_sweep_split.cu")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> argument types of its C entry point (the stream comes last)
@@ -89,7 +95,7 @@ def build(sources=None, name="celeste_kernels"):
     its path. The compiler's report (registers, shared memory, spills per
     kernel) is kept beside it as <library>.ptxas.txt."""
     srcs = _sources() if sources is None else sorted(sources) + _headers()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(SPLIT_COMPILE)).encode())
     for s in srcs:
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
@@ -103,8 +109,10 @@ def build(sources=None, name="celeste_kernels"):
     for src in (s for s in srcs if s.endswith(".cu")):
         obj = f"{tmp}.{os.path.basename(src)}.o"
         objs.append(obj)
+        split = (["--split-compile=0"]
+                 if os.path.basename(src) in SPLIT_COMPILE else [])
         procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            [nvcc, *NVCC_FLAGS, *split, "-c", "-o", obj, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     reports = [p.communicate()[0] for p in procs]
     failed = [r for p, r in zip(procs, reports) if p.returncode != 0]

@@ -30,9 +30,7 @@ class NewtonConfig(NamedTuple):
     _analytic_lik_value_grad). refresh_kernel and tr_kernel "pallas"
     select the CUDA kernels' wrappers (ops/refresh.pixel_terms,
     ops/tr.tr_subproblem; the latter for "bisect" only), "xla" their
-    plain twins; with grad_mode="analytic" refresh_kernel "xla" is the
-    JAX package's XLA refresh in plain torch on the steps' flat fields
-    (vi/optimize._band_lik_terms). eigh_fused (the
+    plain twins, under either grad_mode. eigh_fused (the
     JAX package's CELESTE_EIGH_FUSED, a field here) picks the pjacobi
     sweep: the fused kernel (True) or the split pair (False)."""
     max_iters: int = 50

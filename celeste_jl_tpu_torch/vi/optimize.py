@@ -149,9 +149,10 @@ def _band_lik_terms(theta6, clb, cllb, psf_b, jac_b, wc_b, pc_b, off_b,
     """Each (source, band)'s analytic likelihood derivative blocks in
     (theta6, Cb) space, Cb = (cl0, cl1, cll0, cll1), on flat fields in
     plain torch: the JAX package's XLA refresh (elbo_objective.jl:274-392
-    semantics), the `refresh_kernel="xla"` route. Same contract as
-    ops/refresh.band_lik_terms_fused: (lik (...), g_theta (..., 6),
-    g_C (..., 4), H_tt (..., 6, 6), H_tC (..., 6, 4), H_CC (..., 4, 4))."""
+    semantics). The fit's refresh runs ops/refresh.band_lik_terms_fused
+    (K1 or its plain twin) instead; this is its flat-field statement,
+    with the same contract: (lik (...), g_theta (..., 6), g_C (..., 4),
+    H_tt (..., 6, 6), H_tC (..., 6, 4), H_CC (..., 4, 4))."""
     (x1, x2, msk, x, iota, a0, b0, sm, gm,
      fs0, fs1) = _band_flat_fields(
         theta6, psf_b, jac_b, wc_b, pc_b, off_b, pixels_b, mask_b, sky_b,
@@ -294,21 +295,16 @@ def _analytic_lik_fgh(free, bounds, patch, bg_E_G=None, bg_var_G=None,
     free (S, 41); bounds (S, 26) each; patch (S, B, ...).
     refresh_kernel: "pallas" routes the pixel pass through
     ops/refresh.pixel_terms (the CUDA kernel K1 on CUDA tensors, its plain
-    twin on CPU tensors), "plain" through the twin, "xla" through
-    _band_lik_terms (plain torch on flat fields, the JAX package's XLA
-    refresh). Returns (lik (S,), g (S, 41), H (S, 41, 41)).
+    twin on CPU tensors), "xla" through the plain twin.
+    Returns (lik (S,), g (S, 41), H (S, 41, 41)).
     """
     S = free.shape[0]
     B = patch.pixels.shape[1]
     dtype = free.dtype
     args, _ = _band_args(free, bounds, patch, bg_E_G, bg_var_G)
-    if refresh_kernel == "xla":
-        out = _lane_chunks(_band_lik_terms, args, S, 3 * _field_elems(patch))
-    else:
-        terms = pixel_terms if refresh_kernel == "pallas" \
-            else pixel_terms_plain
-        out = band_lik_terms_fused(*args, terms=terms)
-    lik_b, g_t_b, g_C_b, H_tt_b, H_tC_b, H_CC_b = out
+    terms = pixel_terms if refresh_kernel == "pallas" else pixel_terms_plain
+    lik_b, g_t_b, g_C_b, H_tt_b, H_tC_b, H_CC_b = band_lik_terms_fused(
+        *args, terms=terms)
 
     # Band-ordered assembly (theta, then 4 coefficients per band), then the
     # constant permutation into the C20 layout.
@@ -339,17 +335,10 @@ def fit_evaluators(bounds, patches, bg_E_G=None, bg_var_G=None,
     through the tile render, and fgh its (f, g) with the analytic
     likelihood Hessian; "analytic": fg from _analytic_lik_value_grad and
     fgh's f, g and H all from one _analytic_lik_fgh pass. refresh: that
-    pass's route (_analytic_lik_fgh's refresh_kernel; "xla" is the plain
-    twin's route with grad_mode="ad"). The KL parts come from autograd and
-    torch.func."""
+    pass's route (_analytic_lik_fgh's refresh_kernel). The KL parts come
+    from autograd and torch.func."""
     prior = default_prior(bounds.lower.device, bounds.lower.dtype)
     analytic = grad_mode == "analytic"
-    if refresh == "xla" and not analytic:
-        # grad_mode="ad" keeps the kernel's plain twin as its kernel-free
-        # refresh; the analytic mode refreshes on its steps' flat fields
-        # (_band_lik_terms), as the JAX package pairs them, so the value
-        # at a refresh is the steps' expression
-        refresh = "plain"
 
     def neg_elbo(free):
         vp = to_bound(free, bounds)
@@ -441,7 +430,7 @@ def _fit(vp0s, patches, bg_E_G, bg_var_G, include_kl, config, delta0,
     if free0 is None:
         free0 = to_free(enforce(vp0s, bounds), bounds)
     fg, fgh = fit_evaluators(bounds, patches, bg_E_G, bg_var_G, include_kl,
-                             refresh="plain" if plain
+                             refresh="xla" if plain
                              else config.refresh_kernel,
                              grad_mode=config.grad_mode)
     st = minimize_newton_tr(fgh, free0, config, fg=fg, delta0=delta0,

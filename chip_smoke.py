@@ -144,7 +144,9 @@ Phases, one line each; the first failure exits non-zero:
         written, mc.csv a row a source with finite lnZs, finite VI ELBOs,
         K1-K4 launched, within_2_sd >= within_1_sd >= within_half_sd in
         every row. Its joint VI and its AIS (independent: both start
-        from the truth) run in two processes of the route pool;
+        from the truth) run in two processes of the route pool, each a
+        call of mcmc_experiment.run(stage=...), the runner's own
+        function;
      b. benchmark/bench_elbo at 512 sources on 32 x 32 tiles, f32, 3
         repeats: its JSON lines, every value finite;
      c. phase 4's 64 sources in f64 with grad_mode="analytic" against
@@ -157,7 +159,8 @@ Phases, one line each; the first failure exits non-zero:
         tables and JSON rows, K1-K3 launched; e and f one after the other
         in a process of the route pool.
 Each phase prints its wall time; phases 7, 10, 12, 14, 15, 16, 17a, 17e
-and 17f run together after 13 and print one. The line before the last is the
+and 17f run together after 13 and print one (the route pool: its
+processes block on the card's synchronizations, _blocking_sync). The line before the last is the
 kernels' JSON record (each kernel's launches counted on its path: phase 3
 for K1-K3, 6 for K4, 8 for K2a/K2b, `field_launches` on phase 9's joint
 run, `app_launches` on phase 11's, `multifield_launches` on phase 13's,
@@ -1466,14 +1469,71 @@ def _check_field_routes(pending, device):
     print("phase 10 ok", flush=True)
 
 
+def _blocking_sync():
+    """A route process's start: its waits on the card block
+    (CU_CTX_SCHED_BLOCKING_SYNC on the device's primary context, set
+    before torch makes it) instead of spinning, the CUDA default for a
+    process of one context. The pool runs more processes than the host
+    has cores, and a process spinning on the time-sliced card takes a
+    core from one with host work. Nothing happens where libcuda.so.1
+    does not load (the CPU rehearsal)."""
+    import ctypes
+
+    try:
+        cuda = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return
+    dev = ctypes.c_int()
+    if cuda.cuInit(0) == 0 and cuda.cuDeviceGet(ctypes.byref(dev), 0) == 0:
+        set_flags = getattr(cuda, "cuDevicePrimaryCtxSetFlags_v2",
+                            cuda.cuDevicePrimaryCtxSetFlags)
+        set_flags(dev, 4)
+
+
+# each route process's start (pool_sync_ab sets it to None for a run)
+POOL_INITIALIZER = _blocking_sync
+
+
 def _route_pool(n):
-    """A pool of n spawned processes (a worker that dies fails the phase;
-    all are stopped when the pool closes)."""
+    """A pool of n spawned processes, each started by POOL_INITIALIZER
+    (a worker that dies fails the phase; all are stopped when the pool
+    closes)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     return ProcessPoolExecutor(
-        n, mp_context=multiprocessing.get_context("spawn"))
+        n, mp_context=multiprocessing.get_context("spawn"),
+        initializer=POOL_INITIALIZER)
+
+
+def pool_sync_ab(device="cuda"):
+    """The route pool of main run twice after phases 1 and 11, its
+    processes spinning on the card's synchronizations (no initializer),
+    then blocking (_blocking_sync, as main runs them); prints each wall.
+    The app's twin process (phase 12 starts it from a route process)
+    blocks in both. On the card:
+    python3 -c 'import chip_smoke as c; c.pool_sync_ab()'."""
+    import shutil
+
+    global POOL_INITIALIZER
+    phase_setup()
+    field = {}
+    phase_app(device, rec={"tr_subproblem": {}}, field=field)
+    try:
+        for label, init in (("spinning", None),
+                            ("blocking", _blocking_sync)):
+            shutil.rmtree(os.path.join(field["dir"], "farm"),
+                          ignore_errors=True)
+            POOL_INITIALIZER = init
+            t0 = time.perf_counter()
+            phase_routes(device, galsim={}, farm={"field": field,
+                                                  "grid": (2, 1)},
+                         experiment={}, runners={}, mcmc={}, app={})
+            print(f"route pool, {label}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    finally:
+        POOL_INITIALIZER = _blocking_sync
+        shutil.rmtree(field["dir"], ignore_errors=True)
 
 
 def phase_field_routes(device="cuda", n_sources=16, size=181, seed=7,
@@ -2329,7 +2389,7 @@ def phase_routes(device="cuda", field=None, multi=None, galsim=None,
     x 128 px, seeds 7 and 1007); mcmc: phase_mcmc_routes' on
     mcmc_scene(device); app: phase_app_routes'; galsim: phase_galsim's
     ({} for its defaults); farm: phase_farm's (with `field`, phase 11's);
-    experiment: experiment_stage's; runners: {"calibration":
+    experiment: mcmc_experiment.run's; runners: {"calibration":
     phase_calibration's, "svi_compare": phase_svi_compare's}. Returns
     {phase: its launches} for the phases run of 15, 16, 17a, 17e and 17f
     (keys "galsim", "farm", "experiment", "calibration",
@@ -2724,13 +2784,10 @@ def _check_launched(label, counts, names, device):
               f"{label}: a kernel of the path never launched: {counts}")
 
 
-def experiment_stage(stage, device="cuda", n_sources=16, size=200,
-                     seed=11, temperatures=0, samples=0, newton_config=None,
-                     chain_length=25):
-    """One stage of phase 17a on the experiment's field (drawn here from
-    its seed): "vi", the joint VI (experiments/mcmc_experiment.vi_stage,
-    K1-K3), or "mcmc", the AIS (mcmc_stage, K4), f32 on the card. Returns
-    a dict: the stage's outputs, its seconds and its launches. The two
+def experiment_stage(stage, device="cuda", **kw):
+    """One stage of phase 17a, "vi" (the joint VI, K1-K3) or "mcmc" (the
+    AIS, K4): experiments/mcmc_experiment.run(stage=stage, **kw), f32 on
+    the card. Returns run's dict with the stage's launches. The two
     stages are independent (both start from the truth), so the route pool
     runs them in two processes."""
     import torch
@@ -2738,24 +2795,9 @@ def experiment_stage(stage, device="cuda", n_sources=16, size=200,
     from celeste_jl_tpu_torch.experiments import mcmc_experiment as me
 
     dtype = torch.float32 if device == "cuda" else torch.float64
-    t0 = time.perf_counter()
-    truth, images = me.experiment_field(n_sources, size, seed,
-                                        torch.device(device))
-    cfg = me.ladder_config(None, temperatures, samples)
-    t1 = time.perf_counter()
     with Launches() as rec:
-        if stage == "vi":
-            out = dict(zip(("vi", "vi_elbos"), me.vi_stage(
-                truth, images, cfg, device=device, dtype=dtype,
-                newton_config=newton_config)))
-        else:
-            out = dict(zip(("mc", "chains"), me.mcmc_stage(
-                truth, images, cfg, seed, device=device, dtype=dtype,
-                chain_length=chain_length)))
-    return dict(out, truth=truth, render_s=t1 - t0,
-                seconds=time.perf_counter() - t1, launches=rec.counts(),
-                ladder=(cfg.num_ais_temperatures, cfg.num_ais_samples),
-                dtype=str(dtype)[6:])
+        res = me.run(stage=stage, device=device, dtype=dtype, **kw)
+    return dict(res, launches=rec.counts(), dtype=str(dtype)[6:])
 
 
 def phase_experiment(device="cuda", parts=None, out=None, bars=True, **kw):
@@ -2769,7 +2811,7 @@ def phase_experiment(device="cuda", parts=None, out=None, bars=True, **kw):
     error comparison, the AUCs and the calibration table. Bars: every file
     written, mc.csv one row a source with finite lnZs, finite VI ELBOs,
     K1-K3 and K4 launched, and within_2_sd >= within_1_sd >=
-    within_half_sd in every row of both methods. kw: experiment_stage's
+    within_half_sd in every row of both methods. kw: mcmc_experiment.run's
     (a shorter CPU rehearsal). Returns the launches."""
     import contextlib
     import io
@@ -2782,20 +2824,20 @@ def phase_experiment(device="cuda", parts=None, out=None, bars=True, **kw):
                        experiment_stage("mcmc", device, **kw))
     out = out or os.path.join(ROOT, "build", "mcmc_experiment")
     shutil.rmtree(out, ignore_errors=True)
-    me.write_outputs(out, vi["truth"], vi["vi"], mc["mc"], mc["chains"])
+    me.write_outputs(out, vi["catalog"], vi["vi"], mc["mc"], mc["chains"])
     launches = {k: vi["launches"][k] + mc["launches"][k]
                 for k in vi["launches"]}
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         figs = mcmc_figures.main(["--results-dir", out])
     mc_df, cal = mc["mc"], figs["calibration"]
-    n_sources = len(vi["truth"])
+    n_sources = len(vi["catalog"])
     print(f"phase 17a: experiment, {n_sources} sources, AIS "
           f"{mc['ladder'][0]} temperatures x {mc['ladder'][1]} samples, "
-          f"{mc['dtype']}: render {vi['render_s']:.3f} s, joint VI "
-          f"{vi['seconds']:.3f} s, AIS {mc['seconds']:.3f} s; mc p(star) "
-          + " ".join(f"{v:.3f}" for v in mc_df["is_star"]) + "; launches "
-          f"{launches}", flush=True)
+          f"{mc['dtype']}: render {vi['seconds']['render']:.3f} s, joint VI "
+          f"{vi['seconds']['vi']:.3f} s, AIS {mc['seconds']['mcmc']:.3f} s; "
+          "mc p(star) " + " ".join(f"{v:.3f}" for v in mc_df["is_star"])
+          + f"; launches {launches}", flush=True)
     for line in buf.getvalue().splitlines():
         if line.startswith("matplotlib"):
             print("phase 17a: " + line, flush=True)

@@ -8,11 +8,12 @@ accuracy.Table's) against the JAX package's, float64 on the CPU:
   to 1e-12 (no AIS run of the JAX package);
 - the experiment end to end at 3 sources on 96 px with a short ladder and
   short chains (the CPU run of one_node_mcmc_infer): its CSVs are the
-  files pandas writes of the same tables, JAX's
-  mcmc_figures.make_calibration_table reads them and agrees with the
-  port's table to 1e-12, and the port's figures runner draws its figures.
+  files pandas writes of the same tables, JAX's mcmc_figures reads them
+  and its calibration table, error comparison and AUCs agree with the
+  port's to 1e-12, and the port's figures runner draws its figures.
 """
 
+import functools
 import os
 
 import numpy as np
@@ -111,17 +112,20 @@ def test_chain_reporting_matches_jax_pandas():
 @pytest.fixture(scope="module")
 def experiment(tmp_path_factory):
     """The port's experiment at 3 sources on 96 px, f64: 2 temperatures x
-    2 samples, chains of 1 draw, joint VI with the schedule cut to a
+    2 samples, posterior chains of 1 draw (run_ais_batched's length,
+    25 in the runner, patched here), joint VI with the schedule cut to a
     refresh of 2 steps a fit (on the CPU's plain twins a K4 evaluation of
     the 64 x 64 tiles takes ~40 ms and a slice sweep ~140 of them)."""
     out = str(tmp_path_factory.mktemp("experiment"))
     short = Config(num_joint_vi_iters=1, joint_step_refreshes=1,
                    polish_refreshes=1, polish_sweeps=1, probe_refreshes=1)
-    res = mcmc_experiment.run(
-        N_SOURCES, SIZE, SEED, temperatures=2, samples=2, output_dir=out,
-        device="cpu", dtype=torch.float64, config=short,
-        newton_config=NewtonConfig(max_iters=1, hess_every=2),
-        chain_length=1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(infer, "run_ais_batched", functools.partial(
+            infer.run_ais_batched, num_samples_per_chain=1))
+        res = mcmc_experiment.run(
+            N_SOURCES, SIZE, SEED, temperatures=2, samples=2, output_dir=out,
+            device="cpu", dtype=torch.float64, config=short,
+            newton_config=NewtonConfig(max_iters=1, hess_every=2))
     return out, res
 
 
@@ -147,9 +151,9 @@ def test_experiment_writes_pandas_files(experiment):
 
 
 def test_jax_figures_read_the_port_files(experiment):
-    """JAX's make_calibration_table on the port's CSVs equals the port's
-    table; the port's runner writes calibration.csv as pandas does and
-    draws its three figures."""
+    """JAX's make_calibration_table, make_error_comparison and make_roc on
+    the port's CSVs equal the port's tables and AUCs; the port's runner
+    writes calibration.csv as pandas does and draws its three figures."""
     out, _ = experiment
     read = lambda n: pd.read_csv(os.path.join(out, f"{n}.csv"),
                                  float_precision="round_trip")
@@ -162,8 +166,17 @@ def test_jax_figures_read_the_port_files(experiment):
     spec.loader.exec_module(jfig)
     want = jfig.make_calibration_table(read("truth"), read("vi"), read("mc"),
                                        os.path.join(out, "jax_cal.csv"))
+    want_scores = jfig.make_error_comparison(
+        read("truth"), read("vi"), read("mc"),
+        os.path.join(out, "jax_errors.png"))
+    want_auc = jfig.make_roc(read("truth"), read("vi"), read("mc"),
+                             os.path.join(out, "jax_roc.png"))
     got = mcmc_figures.main(["--results-dir", out])
     _assert_table_equals_frame(got["calibration"], want)
+    _assert_table_equals_frame(got["scores"], want_scores)
+    assert list(got["auc"]) == list(want_auc) == ["VI", "MCMC"]
+    np.testing.assert_allclose(list(got["auc"].values()),
+                               list(want_auc.values()), rtol=1e-12, atol=0.0)
     with open(os.path.join(out, "calibration.csv")) as a, \
             open(os.path.join(out, "jax_cal.csv")) as b:
         assert a.read() == b.read()

@@ -272,5 +272,48 @@ def test_chip_smoke_multifield_phases_run_on_cpu_twins():
         multi=dict(n_sources=6, size=48, config=short, newton_config=newton,
                    bars=False),
         galsim=dict(names=["simple_star", "star_with_noise"], radius=8.0,
-                    newton_config=NewtonConfig(max_iters=2), bars=False))
-    assert out == {"galsim": {k: 0 for k in cs.FIELD_KERNELS}}
+                    newton_config=NewtonConfig(max_iters=2), bars=False),
+        runners=dict(calibration=dict(names=["overlapping_stars"],
+                                      newton_config=newton),
+                     svi_compare=dict(n_sources=4, size=64, steps=3,
+                                      newton_config=newton)))
+    zero = {k: 0 for k in cs.SOURCES}
+    assert out == {"galsim": {k: 0 for k in cs.FIELD_KERNELS},
+                   "calibration": zero, "svi_compare": zero}
+
+
+def test_chip_smoke_science_phases_run_on_cpu_twins(monkeypatch, tmp_path):
+    """Phases 17a-c of chip_smoke.py on the CPU (17d runs in
+    test_chip_smoke_app_phases_run_on_cpu_twins, 17e and 17f in the route
+    pool of test_chip_smoke_multifield_phases_run_on_cpu_twins): the MCMC
+    experiment's two stages through mcmc_experiment.run, its files,
+    figures and bars at 2 sources on 64 x 64 px with a 2 x 2 ladder and
+    posterior chains of one draw (run_ais_batched's length, patched
+    here); bench_elbo at 2 sources on 16 x 16 tiles; the analytic mode
+    against autograd on 2 sources, the fits cut to three refresh cycles.
+    Not the kernels."""
+    import functools
+
+    import chip_smoke as cs
+    from celeste_jl_tpu_torch.mcmc import infer
+    from celeste_jl_tpu_torch.ops.newton import NewtonConfig
+    from celeste_jl_tpu_torch.utils.config import Config
+
+    short = Config(num_joint_vi_iters=1, joint_step_refreshes=1,
+                   polish_refreshes=1, polish_sweeps=1, probe_refreshes=1)
+    newton = NewtonConfig(max_iters=1, hess_every=2)
+    monkeypatch.setattr(infer, "run_ais_batched", functools.partial(
+        infer.run_ais_batched, num_samples_per_chain=1))
+    zero = {k: 0 for k in cs.SOURCES}
+    assert cs.phase_experiment(
+        device="cpu", out=str(tmp_path / "experiment"), num_sources=2,
+        size=64, temperatures=2, samples=2, config=short,
+        newton_config=newton) == zero
+    assert not (tmp_path / "experiment").exists()
+    lines, launches = cs.phase_bench_elbo(device="cpu", n_sources=2, tile=16,
+                                          repeats=1, newton_config=newton)
+    assert len(lines) == 5 and launches == zero
+    short_fit = cs.bench_config()._replace(max_iters=3)
+    monkeypatch.setattr(cs, "bench_config", lambda: short_fit)
+    assert cs.phase_analytic(device="cpu", n_sources=2, n_batch=2,
+                             tile=16) == zero

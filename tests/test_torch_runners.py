@@ -7,8 +7,16 @@
   runner's JSON lines at S = 2;
 - benchmark/calibration.py: its aggregation on fixed tables against a
   pandas computation of run_calibration.py's formulas (1e-12); then the
-  runner on one noisy scene at one seed;
-- benchmark/svi_compare.py: the runner's rows on a 4-source field;
+  runner on one noisy scene at one seed, its tables against the same
+  computation, per seed (the JAX package's get_uncertainty_df,
+  get_error_df and get_scores_df and the seed column), on the scene's
+  truth and estimates;
+- benchmark/svi_compare.py: its field equals run_svi_compare.py's (the
+  JAX package's sample_star, sample_galaxy and gen_images_fast) bit for
+  bit; both runners, their fitters replaced by one fixed result a
+  detection, print the same rows (the detections, the score against the
+  truth and the mean ELBO, rounded as both round them); then the port's
+  rows from its real fitters on a 4-source field;
 - results_to_fits.py: the columns and values of JAX's
   tools/results_to_fits.py on the same .npz files (1e-12). JAX's color
   columns are object columns of 0-d arrays in pandas, which its tool
@@ -19,6 +27,9 @@
 import importlib.util
 import json
 import os
+import shutil
+import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +40,10 @@ from torch.func import hessian, vmap
 
 from __graft_entry__ import _synthetic_batch
 from celeste_jl_tpu.benchmark import accuracy as jab
+from celeste_jl_tpu import synthetic as jsyn
 from celeste_jl_tpu.ops import bijectors as jb
+from celeste_jl_tpu.parallel import run as jrun
+from celeste_jl_tpu.utils import config as jconfig
 from celeste_jl_tpu.vi import optimize as jo
 from celeste_jl_tpu.vi.elbo import elbo as jax_elbo
 from celeste_jl_tpu_torch import convert
@@ -38,6 +52,7 @@ from celeste_jl_tpu_torch.benchmark import (accuracy, bench_elbo,
 from celeste_jl_tpu_torch.io.fits import open_fits
 from celeste_jl_tpu_torch.io.dataset import BoundingBox
 from celeste_jl_tpu_torch.main import save_results
+from celeste_jl_tpu_torch.models.params import ids
 from celeste_jl_tpu_torch.ops import bijectors as tb
 from celeste_jl_tpu_torch.ops.newton import NewtonConfig
 from celeste_jl_tpu_torch.parallel.state import OptimizedSource
@@ -158,12 +173,9 @@ def _equal(table, frame, rtol=1e-12):
                                        err_msg=c)
 
 
-def test_calibration_aggregation_matches_pandas():
-    """run_calibration.py's formulas in pandas (its main, lines 63-84)."""
-    unc, scores, unc_pd, scores_pd = _calibration_tables(
-        np.random.default_rng(2))
-    cal, zq, mean_scores = calibration.aggregate(unc, scores)
-
+def _jax_aggregate(unc_pd, scores_pd):
+    """run_calibration.py's tables in pandas (its main, lines 63-84) from
+    each seed's uncertainty and field-score frames."""
     all_unc = pd.concat(unc_pd, ignore_index=True)
     want_cal = jab.score_uncertainty(all_unc)
     want_cal["N"] = [int((all_unc["name"] == f).sum())
@@ -178,24 +190,159 @@ def test_calibration_aggregation_matches_pandas():
     want_scores = pd.concat(scores_pd, ignore_index=True).groupby(
         "field", as_index=False).agg(N=("N", "sum"),
                                      mean_err=("first", "mean"))
-    _equal(cal, want_cal)
-    _equal(zq, pd.DataFrame(qs))
-    _equal(mean_scores, want_scores)
+    return want_cal, pd.DataFrame(qs), want_scores
+
+
+def test_calibration_aggregation_matches_pandas():
+    unc, scores, unc_pd, scores_pd = _calibration_tables(
+        np.random.default_rng(2))
+    got = calibration.aggregate(unc, scores)
+    for table, frame in zip(got, _jax_aggregate(unc_pd, scores_pd)):
+        _equal(table, frame)
+
+
+def _frame(table):
+    return pd.DataFrame({c: table[c] for c in table.columns})
+
+
+def _records_equal(records, frame, rtol=1e-12):
+    assert [list(r) for r in records] == [list(frame.columns)] * len(frame)
+    for c in frame.columns:
+        got = [r[c] for r in records]
+        if not pd.api.types.is_numeric_dtype(frame[c]):
+            assert got == list(frame[c]), c
+        else:
+            np.testing.assert_allclose(np.asarray(got, np.float64),
+                                       frame[c].to_numpy(float), rtol=rtol,
+                                       err_msg=c)
 
 
 def test_calibration_runner_on_one_scene(monkeypatch, tmp_path, capsys):
+    """The runner's tables equal run_calibration.py's per-seed pipeline
+    and aggregation in pandas on the truth and estimates the scene's
+    run returned."""
     monkeypatch.setenv("CAL_SEEDS", "1")
+    runs = []
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        runs.append((kwargs["seed"], *out))
+        return out
+
+    real = calibration.run_benchmarks
+    monkeypatch.setattr(calibration, "run_benchmarks", spy)
     record = calibration.main(["--scenes", "overlapping_stars", "--out",
                                str(tmp_path)], device="cpu",
                               newton_config=SHORT_NEWTON)
     assert json.loads(capsys.readouterr().out.splitlines()[-1]) == record
     assert record["sources"] == [2] and record["seeds"] == 1
-    fields = [r["field"] for r in record["calibration"]]
-    assert fields == sorted(["log_flux_r_nmgy", "color_ug", "color_gr",
-                             "color_ri", "color_iz"])
+    assert [seed for seed, _, _ in runs] == calibration.seeds(1) == [1234]
+    unc_pd, scores_pd = [], []
+    for seed, truth, pred in runs:
+        truth, pred = _frame(truth), _frame(pred)
+        unc = jab.get_uncertainty_df(truth, pred, aligned=True)
+        unc["seed"] = seed
+        unc_pd.append(unc)
+        err = jab.get_error_df(truth, pred)
+        scores_pd.append(jab.get_scores_df(truth, err).assign(seed=seed))
+    want_cal, want_zq, want_scores = _jax_aggregate(unc_pd, scores_pd)
+    _records_equal(record["calibration"], want_cal)
+    _records_equal(record["z_quantiles"], want_zq)
+    _records_equal(record["mean_errors"], want_scores)
+    assert sorted(want_cal["field"]) == sorted([
+        "log_flux_r_nmgy", "color_ug", "color_gr", "color_ri", "color_iz"])
     assert all(r["N"] == 2 for r in record["calibration"])
-    assert record["mean_errors"]
     assert (tmp_path / "calibration_results.md").exists()
+
+
+def _jax_svi_field(n_sources, size, seed):
+    """run_svi_compare.py's field (its main, lines 52-68), through the JAX
+    package."""
+    margin = 16.0
+    rng = np.random.default_rng(seed)
+    truth, n_star = [], n_sources // 2
+    pos = margin + rng.random((n_sources, 2)) * (size - 2 * margin)
+    for i in range(n_sources):
+        p = tuple(pos[i])
+        if i < n_star:
+            truth.append(jsyn.sample_star(pos=p, r_flux=float(
+                np.exp(rng.normal(3.0, 0.6)))))
+        else:
+            truth.append(jsyn.sample_galaxy(
+                pos=p, r_flux=float(np.exp(rng.normal(3.2, 0.5))),
+                gal_radius_px=float(np.exp(rng.normal(0.7, 0.3))),
+                gal_axis_ratio=float(rng.uniform(0.25, 0.9)),
+                gal_angle=float(rng.uniform(0.0, np.pi))))
+    images = jsyn.make_blank_images(H=size, W=size, sky_nmgy=0.05,
+                                    nelec_per_nmgy=800.0)
+    jsyn.gen_images_fast(images, truth, seed=seed)
+    return truth, images
+
+
+SVI_FIELD = dict(n_sources=6, size=64, seed=7)
+
+
+def test_svi_field_matches_jax():
+    truth, images = svi_compare.svi_field(device=torch.device("cpu"),
+                                          **SVI_FIELD)
+    jtruth, jimages = _jax_svi_field(**SVI_FIELD)
+    assert len(truth) == len(jtruth) == SVI_FIELD["n_sources"]
+    for a, b in zip(truth, jtruth):
+        for f in ("pos", "is_star", "star_fluxes", "gal_fluxes",
+                  "gal_frac_dev", "gal_axis_ratio", "gal_angle",
+                  "gal_radius_px"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
+    for img, jimg in zip(images, jimages):
+        np.testing.assert_array_equal(img.pixels, jimg.pixels)
+
+
+def _fixed_fits(catalog, images, **kwargs):
+    """One fixed result a detection, from its position and order: P(star)
+    and the fluxes vary by source, so the score's branches all run."""
+    out = []
+    for i, ce in enumerate(catalog):
+        pos = np.asarray(ce.pos, np.float64)
+        vs = np.asarray(generic_init_source(pos), np.float64).copy()
+        vs[ids.is_star[0]] = (0.9, 0.2, 0.6)[i % 3]
+        vs[ids.is_star[1]] = 1.0 - vs[ids.is_star[0]]
+        for j in (0, 1):
+            vs[ids.flux_loc[j]] = 2.5 + 0.1 * i + 0.3 * j
+            vs[ids.flux_scale[j]] = 0.01 * (1 + i)
+        out.append(SimpleNamespace(init_pos=pos, vs=vs,
+                                   elbo=-1000.0 - 7.0 * i - float(pos[0])))
+    return out
+
+
+def test_svi_compare_rows_match_jax_runner(monkeypatch, tmp_path, capsys):
+    """run_svi_compare.py's main (a copy, so its svi_results.md goes to
+    tmp_path) and the port's on the same small field, each runner's
+    fitters replaced by _fixed_fits: the same rows, but the walls."""
+    env = {"SVI_SOURCES": str(SVI_FIELD["n_sources"]),
+           "SVI_SIZE": str(SVI_FIELD["size"]),
+           "SVI_SEED": str(SVI_FIELD["seed"]), "SVI_STEPS": "3",
+           "SVI_REPEAT": "1"}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setattr(jconfig, "enable_compile_cache", lambda: None)
+    for mod in (jrun, svi_compare):
+        monkeypatch.setattr(mod, "one_node_single_infer", _fixed_fits)
+        monkeypatch.setattr(mod, "one_node_svi_infer", _fixed_fits)
+    (tmp_path / "benchmark").mkdir()
+    script = tmp_path / "benchmark" / "run_svi_compare.py"
+    shutil.copy(os.path.join(ROOT, "benchmark", "run_svi_compare.py"),
+                script)
+    _jax_module(str(script), "jax_run_svi_compare").main()
+    want = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+            if l.startswith("{")]
+    got = svi_compare.main([], device="cpu", dtype=F64)
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        for k in ("wall_s", "sources_per_sec"):
+            w.pop(k)
+        assert {k: g[k] for k in w} == w
+    assert want[0]["sources"] >= 4 and want[0]["n_matched"] >= 4
+    assert 0.0 < want[0]["type_accuracy"] < 1.0
 
 
 def test_svi_compare_runner_rows(monkeypatch, tmp_path, capsys):
