@@ -22,20 +22,155 @@ plus a historical Dtree distributed work-stealing scheduler
 
 Checkpoint/resume granularity is the box, like the reference (main.jl:50-56):
 a box whose result file exists is never re-run, so resume = rerun the farm.
-The workers run on the card unless the caller asks for the CPU. The
-multi-process pod of the JAX package (init_distributed, is_queue_leader,
-fit_sources_distributed, run_worker_distributed) is not here.
+The workers run on the card unless the caller asks for the CPU.
+
+Across processes, one pod: `init_distributed()` joins the processes into
+one torch.distributed world (Slurm's, torchrun's or the JAX package's
+CELESTE_* variables, or explicit arguments), `fit_sources_distributed`
+shards one fit batch's sources across every rank (parallel/mesh.py), and
+`run_worker_distributed` gates the queue on `is_queue_leader()`, so that
+one process claims boxes and writes results while every process joins
+each box's fit.
 """
 
 import json
 import os
 import time
 
+import datetime
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..io.dataset import BoundingBox
 from ..utils import log as Log
+
+
+def _env_int(*names):
+    """The first of the environment variables `names` that is set, as an
+    int (a Slurm count such as "2(x3)" reads as 2), else None."""
+    for name in names:
+        v = os.environ.get(name)
+        if v:
+            return int(v.split("(")[0])
+    return None
+
+
+def _coordinator():
+    addr = os.environ.get("CELESTE_COORDINATOR")
+    if addr:
+        return addr
+    if os.environ.get("MASTER_ADDR") and os.environ.get("MASTER_PORT"):
+        return f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
+    return None
+
+
+def init_distributed(coordinator_address=None, num_processes=None,
+                     process_id=None, initialization_timeout=None, *,
+                     device="cuda"):
+    """Join this process to its pod: the torch.distributed default process
+    group (idempotent). Returns (rank, world_size).
+
+    The pod comes from the arguments, else from the JAX package's
+    CELESTE_COORDINATOR ("host:port"), CELESTE_NUM_PROCESSES and
+    CELESTE_PROCESS_ID, else torchrun's RANK and WORLD_SIZE or Slurm's
+    SLURM_PROCID and SLURM_NTASKS, with the coordinator from
+    CELESTE_COORDINATOR or torchrun's MASTER_ADDR and MASTER_PORT. With
+    none of these the process is a pod of one, which the log says. A pod
+    of more than one that cannot form raises; the JAX package runs such a
+    process alone instead.
+
+    device "cpu": the ranks join with Gloo. device "cuda" (the card
+    unless the caller asks for the CPU): each rank takes card
+    local rank % cards (LOCAL_RANK or SLURM_LOCALID, else the rank) and
+    the ranks join with NCCL when every rank of the host has a card of
+    its own (LOCAL_WORLD_SIZE or SLURM_NTASKS_PER_NODE ranks a host,
+    else the world on one host), with Gloo when ranks share a card (NCCL
+    refuses two ranks on one device). initialization_timeout (seconds)
+    bounds the forming and every collective of the group. One barrier
+    follows the forming."""
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    from ..utils.device import resolve
+
+    dev = resolve(device)
+    address = coordinator_address or _coordinator()
+    world = num_processes or _env_int("CELESTE_NUM_PROCESSES", "WORLD_SIZE",
+                                      "SLURM_NTASKS")
+    rank = process_id if process_id is not None else _env_int(
+        "CELESTE_PROCESS_ID", "RANK", "SLURM_PROCID")
+    if world is None and address is None:
+        world, rank = 1, 0
+    if world is None or rank is None:
+        raise ValueError(f"pod: world size {world} and rank {rank} are not "
+                         "both given")
+    if world > 1 and address is None:
+        raise ValueError(f"a pod of {world} processes needs a coordinator "
+                         "address (CELESTE_COORDINATOR or MASTER_ADDR and "
+                         "MASTER_PORT)")
+
+    backend = "gloo"
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        local_rank = _env_int("LOCAL_RANK", "SLURM_LOCALID")
+        local_world = _env_int("LOCAL_WORLD_SIZE", "SLURM_NTASKS_PER_NODE")
+        torch.cuda.set_device((rank if local_rank is None else local_rank)
+                              % cards)
+        if (world if local_world is None else local_world) <= cards:
+            backend = "nccl"
+    kw = {}
+    if initialization_timeout is not None:
+        kw["timeout"] = datetime.timedelta(seconds=initialization_timeout)
+    if world == 1 and address is None:
+        Log.info("init_distributed: no pod was asked for; running as a pod "
+                 "of one process")
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1, **kw)
+    else:
+        dist.init_process_group(backend, init_method=f"tcp://{address}",
+                                rank=rank, world_size=world, **kw)
+    dist.barrier()
+    Log.info(f"init_distributed: rank {rank} of {world} ({backend})")
+    return rank, world
+
+
+def is_queue_leader():
+    """True on the process that claims boxes and writes results: rank 0
+    of the pod (every process that is in no pod)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def fit_sources_distributed(vp0s, patches, config=None, include_kl=True):
+    """One fit batch sharded across every rank of the pod.
+
+    vp0s (S, 44) and patches (leading S axis) must be the same on every
+    rank, each on its rank's device: each rank stages the box (cheap host
+    work) and fits its block of source lanes on a 1-D src mesh over the
+    pod (parallel/mesh.fit_sources_sharded: lanes padded to the world
+    size, independent, gathered once at the end). Rank r's block is the
+    r-th. config: the NewtonConfig; default the solver of the rank's
+    device (run._platform_newton_config: on a card pjacobi through
+    K1-K3). Returns the whole FitResult on every rank."""
+    from ..ops.newton import NewtonConfig
+    from .mesh import fit_sources_sharded, world_src_mesh
+    from .run import _platform_newton_config
+
+    if config is None:
+        config = _platform_newton_config(NewtonConfig(), vp0s.device,
+                                         vp0s.dtype)
+    return fit_sources_sharded(vp0s, patches, world_src_mesh(),
+                               include_kl=include_kl, config=config)
+
+
+def _broadcast_index(i):
+    """Rank 0's int `i` on every rank of the pod (an int64 tensor on the
+    device the backend's collectives take)."""
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor([i], dtype=torch.int64, device=dev)
+    dist.broadcast(t, src=0)
+    return int(t.item())
 
 
 def split_box(box: BoundingBox, n_ra: int, n_dec: int):
@@ -325,4 +460,51 @@ def run_worker_pipelined(queue: FileWorkQueue, load_images, config=None,
         if not is_production_run():
             raise
         Log.exception(exc)
+    return completed
+
+
+def run_worker_distributed(queue: FileWorkQueue, stage_box, save_box=None,
+                           config=None, worker_id=None, max_boxes=None):
+    """Queue-draining loop of one pod (init_distributed first).
+
+    Every rank runs this loop in step: the leader (is_queue_leader) claims
+    the next pending box and broadcasts its index; every rank stages the
+    box with the deterministic `stage_box: BoundingBox -> (vp0s, patches,
+    *extra)` and joins its fit (fit_sources_distributed, `config`); the
+    leader alone saves it with `save_box(box, fit_result, *extra)`, whose
+    result file marks the box done for the whole farm (fit_result None
+    for a box of no sources). Followers never touch the queue (the
+    reference's master-rank I/O, SDSSIO.jl:687-691). On an error the
+    leader releases the box and every rank raises (a rank that did not
+    fail itself at its next collective's timeout). Returns the boxes
+    completed (the same on every rank)."""
+    worker_id = _worker_id(worker_id)
+    leader = is_queue_leader()
+    completed = 0
+    while max_boxes is None or completed < max_boxes:
+        nxt = -1
+        if leader:
+            for i, box in enumerate(queue.boxes()):
+                if queue.done(box):
+                    continue
+                if queue.try_claim(box, worker_id) is not None:
+                    nxt = i
+                    break
+        nxt = _broadcast_index(nxt)
+        if nxt < 0:
+            break
+        box = queue.boxes()[nxt]
+        Log.info(f"pod worker {worker_id}: box {box_name(box)}")
+        try:
+            vp0s, patches, *extra = stage_box(box)
+            res = (fit_sources_distributed(vp0s, patches, config=config)
+                   if len(vp0s) else None)
+            if leader and save_box is not None:
+                save_box(box, res, *extra)
+            completed += 1
+        except Exception as exc:
+            Log.exception(exc)
+            if leader:
+                queue.release(box)
+            raise
     return completed

@@ -10,13 +10,17 @@ come from _analytic_lik_value_grad (one render and weighted pixel sums on
 flat fields), and a refresh's f, g and H all come from _analytic_lik_fgh.
 The likelihood Hessian is analytic (a pixel pass + moment assembly), the
 KL parts come from torch.autograd and torch.func. Only
-hessian_mode="analytic" is ported.
+hessian_mode="analytic" is ported. With a pixel_group (a torch.distributed
+process group whose ranks hold row blocks of the same tiles,
+parallel/mesh.py) each rank's (f, g) and (f, g, H) are all-reduced over
+the group, the counterpart of maximize(pixel_axis=) in the JAX package.
 """
 
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import hessian, jacfwd, vmap
 
 from ..models import mixture_derivs as md
@@ -327,8 +331,21 @@ def _analytic_lik_fgh(free, bounds, patch, bg_E_G=None, bg_var_G=None,
     return lik_b.sum(1), g_free, H_free
 
 
+def _all_reduce_lanes(parts, group):
+    """Sum each (S, ...) tensor of `parts` over the ranks of `group` with
+    one all_reduce of their lanes laid side by side."""
+    S = parts[0].shape[0]
+    widths = [int(np.prod(t.shape[1:])) for t in parts]
+    flat = torch.cat([t.reshape(S, n) for t, n in zip(parts, widths)],
+                     dim=-1)
+    dist.all_reduce(flat, group=group)
+    return tuple(block.reshape(t.shape) for t, block in
+                 zip(parts, torch.split(flat, widths, dim=-1)))
+
+
 def fit_evaluators(bounds, patches, bg_E_G=None, bg_var_G=None,
-                   include_kl=True, refresh="xla", grad_mode="ad"):
+                   include_kl=True, refresh="xla", grad_mode="ad",
+                   pixel_group=None):
     """The fit's two evaluators of every lane's negative ELBO at free
     (S, 41): fg(free) -> (f, g), a trust-region step's, and
     fgh(free) -> (f, g, H), a refresh's. grad_mode "ad": fg by autograd
@@ -336,9 +353,20 @@ def fit_evaluators(bounds, patches, bg_E_G=None, bg_var_G=None,
     likelihood Hessian; "analytic": fg from _analytic_lik_value_grad and
     fgh's f, g and H all from one _analytic_lik_fgh pass. refresh: that
     pass's route (_analytic_lik_fgh's refresh_kernel). The KL parts come
-    from autograd and torch.func."""
+    from autograd and torch.func.
+
+    pixel_group: a process group whose ranks each hold a row block of
+    the same tiles (JAX maximize's pixel_axis). Each rank then carries
+    1 / size of the KL, and fg's (f, g) and fgh's (f, g, H) are summed
+    over the group once each, so every rank of the group gets the same
+    bits and takes the same steps."""
     prior = default_prior(bounds.lower.device, bounds.lower.dtype)
     analytic = grad_mode == "analytic"
+    n_pix = 1 if pixel_group is None else dist.get_world_size(pixel_group)
+
+    def kl(vp):
+        out = subtract_kl(vp, prior)
+        return out if pixel_group is None else out / n_pix
 
     def neg_elbo(free):
         vp = to_bound(free, bounds)
@@ -347,14 +375,14 @@ def fit_evaluators(bounds, patches, bg_E_G=None, bg_var_G=None,
                                               fs1m)
         ll = pixel_log_likelihood(E_G_s, var_G_s, patches, bg_E_G, bg_var_G)
         if include_kl:
-            ll = ll + subtract_kl(vp, prior)
+            ll = ll + kl(vp)
         return -ll
 
     def neg_kl(free):
-        return -subtract_kl(to_bound(free, bounds), prior)
+        return -kl(to_bound(free, bounds))
 
     def kl_lane(fr, lo, up, sc):
-        return subtract_kl(to_bound(fr, BoxBounds(lo, up, sc)), prior)
+        return kl(to_bound(fr, BoxBounds(lo, up, sc)))
 
     def value_grad(fn, free):
         with torch.enable_grad():
@@ -369,21 +397,30 @@ def fit_evaluators(bounds, patches, bg_E_G=None, bg_var_G=None,
         f_kl, g_kl = value_grad(neg_kl, free)
         return f + f_kl, g + g_kl
 
-    def fg(free):
+    def fg_raw(free):
+        # this rank's (f, g), before any sum over the pixel group
         if analytic:
             lik, g_lik = _analytic_lik_value_grad(free, bounds, patches,
                                                   bg_E_G, bg_var_G)
             return with_kl(-lik, -g_lik, free)
         return value_grad(neg_elbo, free)
 
+    def fg(free):
+        f, g = fg_raw(free)
+        if pixel_group is not None:
+            f, g = _all_reduce_lanes((f, g), pixel_group)
+        return f, g
+
     def fgh(free):
         lik, g_lik, H_lik = _analytic_lik_fgh(free, bounds, patches, bg_E_G,
                                               bg_var_G, refresh)
         # grad_mode="ad": the refresh's f, g are the steps' (autograd)
-        f, g = with_kl(-lik, -g_lik, free) if analytic else fg(free)
+        f, g = with_kl(-lik, -g_lik, free) if analytic else fg_raw(free)
         H = -H_lik
         if include_kl:
             H = H - vmap(hessian(kl_lane))(free, *bounds).to(H.dtype)
+        if pixel_group is not None:
+            f, g, H = _all_reduce_lanes((f, g, H), pixel_group)
         return f, g, H
 
     return fg, fgh
@@ -393,7 +430,7 @@ def fit_sources(vp0s, patches, bg_E_G=None, bg_var_G=None, include_kl=True,
                 config: NewtonConfig = NewtonConfig(),
                 hessian_mode="analytic", delta0=None, bounds_pos=None,
                 free0=None, converged0=None, loc_width=1e-4, loc_scale=1.0,
-                plain=False):
+                plain=False, pixel_group=None):
     """Fit every source of the batch: vp0s (S, 44), patches a SkyPatch with
     leading S axis, optional fixed neighbor images bg_E_G / bg_var_G
     (S, B, P, P). Returns a FitResult with leading S axis.
@@ -403,6 +440,9 @@ def fit_sources(vp0s, patches, bg_E_G=None, bg_var_G=None, include_kl=True,
     the ORIGINAL position-box centers, the previous free vector (vp0s is
     then ignored) and the converged flags (those lanes stay frozen).
     plain=True runs every kernel's plain twin (the comparison route).
+    pixel_group: the process group over which the tiles' rows are split
+    (fit_evaluators); every rank of it passes the same vp0s and its own
+    row block of each tile, with offsets that place the block.
     """
     if hessian_mode != "analytic":
         raise NotImplementedError(f"hessian_mode={hessian_mode!r}")
@@ -411,11 +451,12 @@ def fit_sources(vp0s, patches, bg_E_G=None, bg_var_G=None, include_kl=True,
     with torch.no_grad():
         return _fit(vp0s, patches, bg_E_G, bg_var_G, include_kl, config,
                     delta0, bounds_pos, free0, converged0, loc_width,
-                    loc_scale, plain)
+                    loc_scale, plain, pixel_group)
 
 
 def _fit(vp0s, patches, bg_E_G, bg_var_G, include_kl, config, delta0,
-         bounds_pos, free0, converged0, loc_width, loc_scale, plain):
+         bounds_pos, free0, converged0, loc_width, loc_scale, plain,
+         pixel_group):
     # Fit in world coordinates relative to each lane's position-box center:
     # the box is 2 loc_width wide (2e-4), float32's spacing is 1.2e-4 at
     # 1024 and 2.4e-4 at 2048, where the box would hold one or two
@@ -432,7 +473,8 @@ def _fit(vp0s, patches, bg_E_G, bg_var_G, include_kl, config, delta0,
     fg, fgh = fit_evaluators(bounds, patches, bg_E_G, bg_var_G, include_kl,
                              refresh="xla" if plain
                              else config.refresh_kernel,
-                             grad_mode=config.grad_mode)
+                             grad_mode=config.grad_mode,
+                             pixel_group=pixel_group)
     st = minimize_newton_tr(fgh, free0, config, fg=fg, delta0=delta0,
                             converged0=converged0, plain=plain)
     vp = to_bound(st.x, bounds)

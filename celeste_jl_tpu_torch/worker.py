@@ -1,9 +1,10 @@
 """Farm worker: drain the shared box queue until empty (the port's
-counterpart of contrib/slurm/worker.py, one process on one card).
+counterpart of contrib/slurm/worker.py).
 
     python -m celeste_jl_tpu_torch.worker --workdir W --basedir B \
         --box ramin,ramax,decmin,decmax [--grid 8x8] [--method joint_vi] \
-        [--group-boxes 2] [--no-pipeline] [--detect-thresh 1.3]
+        [--group-boxes 2] [--no-pipeline] [--detect-thresh 1.3] \
+        [--distributed]
 
 The box is split --grid RAxDEC ways into sub-boxes, published once to the
 work queue under --workdir (parallel/multinode.FileWorkQueue), and drained
@@ -17,31 +18,87 @@ run_worker loop. Any number of workers may share one --workdir; a box whose
 result file (celeste-<box>.npz) exists is never run again, so a rerun
 resumes the farm.
 
+--distributed joins every process of the job into one pod
+(multinode.init_distributed: torchrun's, Slurm's or the CELESTE_*
+variables) before anything touches the card, and drains the queue as the
+pod (multinode.run_worker_distributed): rank 0 claims each box, every rank
+stages it (detection, 32 x 32 patches of radius 12 around each target,
+catalog initialization: single-source VI, make_single_vi_stage) and fits
+its block of the box's targets, and rank 0 saves them. --method,
+--group-boxes and --no-pipeline do not apply to it.
+
 The worker runs on the card, in float64 as the survey app does; main(argv,
 device="cpu") runs it on the CPU. It prints one JSON line at its end: the
 boxes it completed, the sources in the workdir's result files, its wall
-time, each pipelined group's load, detect and infer seconds, and the
-kernels' launches (K3's also by D: the PSF fits' are D = 12).
---distributed (one pod over several processes) is not ported and exits
-with an error.
+time, each pipelined group's load, detect and infer seconds, its rank and
+the pod's size, and the kernels' launches (K3's also by D: the PSF fits'
+are D = 12), this rank's and every rank's.
 """
 
 import argparse
 import json
 import time
 
+import numpy as np
 import torch
 
-from .utils import log as Log
 from .utils.device import resolve
 
-DISTRIBUTED_MESSAGE = (
-    "--distributed (one pod of processes sharing each box's fit) is not "
-    "ported to celeste_jl_tpu_torch yet: it is ROADMAP Slice E's "
-    "distributed half. Run one worker process per card against a shared "
-    "--workdir instead.")
+
+def make_single_vi_stage(load_images, detect_kwargs, *, device, dtype):
+    """BoundingBox -> (vp0s (S, 44), patches, positions, bad_sky) for the
+    distributed worker: detection, each target's (a detection inside the
+    box) 32 x 32 patch, active within 12 px, and catalog initialization
+    (contrib/slurm/worker.make_single_vi_stage), with each target's
+    catalog position and run.bad_sky flag for its record. Deterministic
+    host work, repeated the same on every rank of the pod. A box without
+    targets gives S = 0 and patches None. detect_kwargs: a callable of the
+    images that returns detection's keywords."""
+    from .detection.detect import detect_sources
+    from .models.patches import make_patch_for_source, stack_patches
+    from .parallel.run import bad_sky
+    from .vi.init import catalog_init_source
+
+    def stage(box):
+        images = load_images(box)
+        catalog, _ = detect_sources(images, **detect_kwargs(images))
+        targets = [ce for ce in catalog if box.contains(ce.pos[0], ce.pos[1])]
+        positions = [np.asarray(ce.pos, np.float64) for ce in targets]
+        bad = [bad_sky(ce, images) for ce in targets]
+        if not targets:
+            return (torch.zeros((0, 44), dtype=dtype, device=device), None,
+                    positions, bad)
+        patches = stack_patches([
+            make_patch_for_source(images, ce.pos, radius=12, tile_size=32)
+            for ce in targets], device, dtype)
+        vp0s = torch.as_tensor(np.stack([catalog_init_source(ce)
+                                         for ce in targets]),
+                               dtype=dtype, device=device)
+        return vp0s, patches, positions, bad
+
+    return stage
 
 
+def _save_single_vi(workdir):
+    """save_box of the distributed worker: each target's record with its
+    catalog position and its bad_sky flag."""
+    from .main import save_results
+    from .parallel.state import OptimizedSource
+
+    def save(box, res, positions, bad):
+        results = []
+        if res is not None:
+            vp = res.vp.double().cpu().numpy()
+            elbo = res.elbo.double().cpu().numpy()
+            conv = res.converged.cpu().numpy()
+            results = [OptimizedSource(init_pos=positions[i], vs=vp[i],
+                                       elbo=float(elbo[i]),
+                                       converged=bool(conv[i]),
+                                       is_sky_bad=bool(bad[i]))
+                       for i in range(len(positions))]
+        save_results(workdir, box, results)
+
+    return save
 def main(argv=None, *, device="cuda", config=None, newton_config=None):
     """The worker CLI. Runs on `device` (the card unless the caller asks
     for the CPU) in float64; config: the inference's Config (default
@@ -49,7 +106,7 @@ def main(argv=None, *, device="cuda", config=None, newton_config=None):
     (default NewtonConfig()). Returns the exit code."""
     ap = argparse.ArgumentParser(
         prog="celeste_jl_tpu_torch.worker",
-        description="Drain a shared queue of sky boxes on one card.")
+        description="Drain a shared queue of sky boxes.")
     ap.add_argument("--workdir", required=True)
     ap.add_argument("--basedir", required=True)
     ap.add_argument("--box", required=True,
@@ -66,17 +123,20 @@ def main(argv=None, *, device="cuda", config=None, newton_config=None):
                     help="detection threshold in sky-noise sigmas "
                          "(detection.jl uses 1.3)")
     ap.add_argument("--distributed", action="store_true",
-                    help="not ported: exits with an error")
+                    help="join the job's processes into one pod: rank 0 "
+                         "claims and saves, every rank fits a block of "
+                         "each box's sources")
     args = ap.parse_args(argv)
-    if args.distributed:
-        Log.error(DISTRIBUTED_MESSAGE)
-        return 2
+
+    from .parallel import multinode as mn
+
+    rank, world = (mn.init_distributed(device=device) if args.distributed
+                   else (0, 1))
     resolve(device)
 
     from .io.dataset import BoundingBox
     from .io.sdss import SDSSDataSet
     from .main import load_results
-    from .parallel import multinode as mn
     from .utils import telemetry
     from .utils.config import Config
 
@@ -104,7 +164,13 @@ def main(argv=None, *, device="cuda", config=None, newton_config=None):
               dtype=torch.float64)
     telemetry.fit_kernel_launches(reset=True)
     t0 = time.perf_counter()
-    if args.method == "joint_vi" and not args.no_pipeline:
+    if args.distributed:
+        done = mn.run_worker_distributed(
+            queue, make_single_vi_stage(load_images, detect_kwargs,
+                                        device=device, dtype=torch.float64),
+            save_box=_save_single_vi(queue.workdir), config=newton_config,
+            worker_id=f"rank{rank}")
+    elif args.method == "joint_vi" and not args.no_pipeline:
         done = mn.run_worker_pipelined(
             queue, load_images=load_images, group_boxes=args.group_boxes,
             on_group=groups.append, **kw)
@@ -113,6 +179,13 @@ def main(argv=None, *, device="cuda", config=None, newton_config=None):
         done = mn.run_worker(queue, load_images=load_images,
                              method=args.method, **kw)
     wall = time.perf_counter() - t0
+    launches = telemetry.fit_kernel_launches()
+    by_rank = [launches]
+    if args.distributed:
+        import torch.distributed as dist
+
+        by_rank = [None] * world
+        dist.all_gather_object(by_rank, launches)
     n_sources = sum(len(load_results(queue._result_file(b)))
                     for b in boxes if queue.done(b))
     print(json.dumps({
@@ -122,7 +195,8 @@ def main(argv=None, *, device="cuda", config=None, newton_config=None):
         "groups": [{"boxes": [mn.box_name(b) for b in g["boxes"]],
                     **{k: g[k] for k in ("sources", "load_s", "detect_s",
                                          "infer_s")}} for g in groups],
-        "kernel_launches": telemetry.fit_kernel_launches(),
+        "rank": rank, "world_size": world,
+        "kernel_launches": launches, "kernel_launches_by_rank": by_rank,
         "tr_launches_by_dim": telemetry.tr_launches_by_dim(),
     }), flush=True)
     return 0

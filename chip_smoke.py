@@ -158,6 +158,20 @@ Phases, one line each; the first failure exits non-zero:
      f. benchmark/svi_compare at 32 sources on 256 px, one pass: their
         tables and JSON rows, K1-K3 launched; e and f one after the other
         in a process of the route pool.
+ 18. the pod (phase_pod), alone after 17d: two ranks spawned by
+     parallel/mesh.spawn_pod, joined with Gloo and sharing the card,
+     f64 (in the route pool, beside its ~16 processes, a rank's
+     cusolverDnCreate failed). (a) phase 4's 64 sources fitted by fit_sources_sharded
+     with run.card_newton_config on a (1, 2) mesh (each tile's rows split
+     over the ranks: held to the one-process fit at phase 4's 1e-4 ELBO
+     bar, its ELBOs to the whole tiles' ELBO at its parameters at 1e-6,
+     its ranks' free vectors equal bit for bit) and a (2, 1) mesh (the
+     sources split: held to one process's fits of the same blocks at
+     1e-6), 0 flips and the same converged flags each, every rank's
+     K1-K3 launched; (b) the worker CLI --distributed on both ranks over
+     phase 11's files, 2 x 1 boxes: every box saved by rank 0, each of
+     phase 11's targets once at its catalog position, finite ELBOs,
+     every rank's K1-K3 launched; the pod's sources/s.
 Each phase prints its wall time; phases 7, 10, 12, 14, 15, 16, 17a, 17e
 and 17f run together after 13 and print one (the route pool: its
 processes block on the card's synchronizations, _blocking_sync). The line before the last is the
@@ -167,7 +181,7 @@ run, `app_launches` on phase 11's, `multifield_launches` on phase 13's,
 `galsim_launches` on phase 15's, `farm_launches` on phase 16's worker
 run, and `experiment_launches`, `bench_elbo_launches`,
 `analytic_launches`, `calibration_launches` and `svi_compare_launches`
-on phase 17's; its
+on phase 17's, and `pod_launches` on phase 18's two ranks; its
 bound from this run's shapes at the H100's published f32 and memory
 peaks); the last line is {"ok": true, "device": {...}}. The app's files go
 to a directory under build/, removed at the end. Imports nothing of JAX.
@@ -3072,6 +3086,244 @@ def phase_svi_compare(device="cuda", n_sources=32, size=256, steps=500,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the sharded fit and the distributed worker, a pod of two ranks
+# ---------------------------------------------------------------------------
+
+POD_RANKS = 2
+POD_MESHES = ((1, 2), (2, 1))   # (n_src, n_pix): pixel-, source-sharded
+POD_ELBO_TOL = 1e-6
+POD_TIMEOUT_S = 400.0
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def pod_rank(vp0s, patches, config, meshes, worker_argv, worker_config,
+             device):
+    """One rank of phase 18's pod (parallel/mesh.spawn_pod), f64: (a)
+    fit_sources_sharded of vp0s / patches (numpy; to the rank's device)
+    over each (n_src, n_pix) mesh of `meshes` with `config`; (b) with
+    worker_argv, the worker CLI's main with --distributed (newton_config
+    worker_config). Returns (every
+    rank gets it; spawn_pod hands back rank 0's) each mesh's whole fit
+    with every rank's free vectors, wall and K1-K3 launches, and every
+    rank's worker summary line."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from celeste_jl_tpu_torch import worker
+    from celeste_jl_tpu_torch.models.patches import SkyPatch
+    from celeste_jl_tpu_torch.parallel.mesh import (fit_sources_sharded,
+                                                    make_mesh)
+
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    vp = torch.as_tensor(vp0s, device=dev)
+    p = SkyPatch(*(torch.as_tensor(a, device=dev) for a in patches))
+    world = dist.get_world_size()
+    fits = []
+    for shape in meshes:
+        mesh = make_mesh(*shape)
+        with Launches() as launches:
+            _sync(dev)
+            t0 = time.perf_counter()
+            res = fit_sources_sharded(vp, p, mesh, config=config)
+            _sync(dev)
+            mine = dict(free=res.free.cpu().numpy(),
+                        wall=time.perf_counter() - t0,
+                        launches={k: launches.counts()[k]
+                                  for k in FIELD_KERNELS})
+        ranks = [None] * world
+        dist.all_gather_object(ranks, mine)
+        fits.append(dict(mesh=shape, vp=res.vp.cpu().numpy(),
+                         elbo=res.elbo.cpu().numpy(),
+                         converged=res.converged.cpu().numpy(), ranks=ranks))
+    summaries = None
+    if worker_argv is not None:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = worker.main(worker_argv + ["--distributed"], device=device,
+                             newton_config=worker_config)
+        if rc != 0:
+            raise RuntimeError(f"the distributed worker returned {rc}")
+        summaries = [None] * world
+        dist.all_gather_object(
+            summaries, json.loads(buf.getvalue().strip().splitlines()[-1]))
+    return dict(fits=fits, worker=summaries)
+
+
+def _pod_mesh_check(fit, ref, e_at_vp, ref_label, elbo_tol, n_sources, tile,
+                    cuda):
+    """One mesh's lines and bars of phase 18a: `fit` (pod_rank's, by rank)
+    against `ref` (a one-process FitResult of the same lanes), with
+    e_at_vp the full tiles' ELBO at the pod's parameters (or None).
+    Returns (message, ok)."""
+    n_src, n_pix = fit["mesh"]
+    e1 = ref.elbo.cpu().numpy()
+    flips = int(np.sum((fit["vp"][:, 26] > 0.5)
+                       != (ref.vp[:, 26].cpu().numpy() > 0.5)))
+    rel = np.abs(fit["elbo"] - e1) / np.abs(e1)
+    same_conv = bool(np.array_equal(fit["converged"],
+                                    ref.converged.cpu().numpy()))
+    ranks = fit["ranks"]
+    equal = all(np.array_equal(r["free"], ranks[0]["free"]) for r in ranks)
+    launched = all(all(n > 0 for n in r["launches"].values()) for r in ranks)
+    msg = (f"phase 18a: {n_sources} sources {tile}x{tile} f64 on a "
+           f"({n_src}, {n_pix}) mesh ({POD_RANKS} ranks) against {ref_label}"
+           f": {flips} flips, converged flags equal {same_conv}, ELBO rel "
+           f"worst {rel.max():.3g} (bar {elbo_tol:g}; bit for bit "
+           f"{bool(np.array_equal(fit['elbo'], e1))})")
+    ok = flips == 0 and same_conv and bool(np.all(rel <= elbo_tol))
+    if e_at_vp is not None:
+        exact = np.abs(fit["elbo"] - e_at_vp) / np.abs(e_at_vp)
+        msg += (f"; its ELBO against the whole tiles' ELBO at its parameters"
+                f" rel worst {exact.max():.3g} (bar {POD_ELBO_TOL:g})")
+        ok = ok and bool(np.all(exact <= POD_ELBO_TOL))
+    msg += (f"; ranks' free vectors bit for bit equal {equal}; walls "
+            f"{[round(r['wall'], 3) for r in ranks]} s; K1-K3 launches by "
+            f"rank {[r['launches'] for r in ranks]}")
+    ok = ok and (equal or n_pix == 1) and (launched or not cuda)
+    return msg, ok
+
+
+def phase_pod(field=None, device="cuda", n_sources=64, tile=32,
+              meshes=POD_MESHES, config=None):
+    """18. A pod of two ranks (parallel/mesh.spawn_pod, Gloo: on one card
+    the two processes share it), f64:
+    (a) phase 4's sources (synthetic_patch_batch(n_sources, tile, seed
+    1)) fitted by fit_sources_sharded on each mesh of `meshes` with
+    run.card_newton_config (K1-K3; config overrides it, the worker's
+    too). A (1, 2) mesh splits each source's tile rows over the ranks: it
+    is held to the one-process fit of the batch (0 flips, the same
+    converged flags, no ELBO further than 1e-4 relative: the order of the
+    (f, g, H) sums differs, and the Newton trajectories carry that to
+    ~1e-5, as phase 4's kernels against twins) and its ELBOs to the
+    whole tiles' ELBO at its parameters (1e-6); its ranks' free vectors
+    must be equal bit for bit. A (2, 1) mesh splits the sources: each
+    rank's block is held to the one-process fit of that block (0 flips,
+    the same converged flags, ELBO within 1e-6; the Jacobi sweeps stop on
+    the whole batch's test, so a lane's fit depends on its batch). Each
+    rank's K1-K3 launched. The one-process fits run here while the pod
+    runs;
+    (b) with `field` (phase 11's, from phase_app(field=...)): the worker
+    CLI's main with --distributed on both ranks over phase 11's files,
+    its box split 2 x 1, detection as phase 11's. Bars: every box saved,
+    each of phase 11's targets saved once, at its catalog position,
+    finite ELBOs, each rank's K1-K3 launched. Prints each mesh's walls
+    and launches by rank and the pod's sources/s. Returns the pod's
+    launches (both ranks, (a) and (b)) by kernel."""
+    import concurrent.futures
+    import shutil
+
+    import torch
+
+    from celeste_jl_tpu_torch.io.dataset import BoundingBox
+    from celeste_jl_tpu_torch.main import load_results
+    from celeste_jl_tpu_torch.ops.newton import NewtonConfig
+    from celeste_jl_tpu_torch.parallel import multinode as mn
+    from celeste_jl_tpu_torch.parallel.mesh import spawn_pod
+    from celeste_jl_tpu_torch.parallel.run import card_newton_config
+    from celeste_jl_tpu_torch.synthetic import synthetic_patch_batch
+    from celeste_jl_tpu_torch.vi.elbo import elbo
+    from celeste_jl_tpu_torch.vi.optimize import FitResult, fit_sources
+
+    cfg = config or card_newton_config(NewtonConfig(), torch.float64)
+    _, vp0s, patches = synthetic_patch_batch(n_sources, tile=tile, seed=1,
+                                             dtype=np.float64, device=device)
+    vp = torch.as_tensor(vp0s, device=device)
+    argv = workdir = None
+    if field is not None:
+        workdir = os.path.join(field["dir"], "pod")
+        shutil.rmtree(workdir, ignore_errors=True)
+        argv = ["--workdir", workdir, "--basedir", field["base"], "--box",
+                ",".join(repr(float(v)) for v in field["box"]), "--grid",
+                "2x1", "--detect-thresh", "6"]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        pending = ex.submit(
+            spawn_pod, POD_RANKS, pod_rank, vp0s,
+            tuple(t.cpu().numpy() for t in patches), cfg, meshes, argv,
+            config, device, device=device, timeout_s=POD_TIMEOUT_S)
+        whole = fit_sources(vp, patches, config=cfg)
+        refs = {}
+        for n_src, _ in meshes:
+            block = -(-n_sources // n_src)
+            parts = [fit_sources(vp[i:i + block],
+                                 patches.index(slice(i, i + block)),
+                                 config=cfg)
+                     for i in range(0, n_sources, block)]
+            refs[n_src] = FitResult(*(torch.cat(f) for f in zip(*parts)))
+        out = pending.result()
+    pod_wall = time.perf_counter() - t0
+    cuda = device == "cuda"
+    total = {k: 0 for k in SOURCES}
+    failed = []
+    for fit in out["fits"]:
+        for r in fit["ranks"]:
+            for k, n in r["launches"].items():
+                total[k] += n
+        n_src, n_pix = fit["mesh"]
+        if n_pix > 1:
+            at_vp = elbo(torch.as_tensor(fit["vp"], device=device),
+                         patches).cpu().numpy()
+            msg, ok = _pod_mesh_check(fit, whole, at_vp,
+                                      "the one-process fit",
+                                      SLICE_ELBO_TOL, n_sources, tile, cuda)
+        else:
+            msg, ok = _pod_mesh_check(fit, refs[n_src], None,
+                                      f"one process's fits of its "
+                                      f"{n_src} blocks", POD_ELBO_TOL,
+                                      n_sources, tile, cuda)
+        print(msg, flush=True)
+        if not ok:
+            failed.append(msg)
+    if field is not None:
+        summaries = out["worker"]
+        boxes = mn.split_box(BoundingBox(*field["box"]), 2, 1)
+        queue = mn.FileWorkQueue(workdir)
+        results = [r for b in boxes if queue.done(b)
+                   for r in load_results(queue._result_file(b))]
+        saved = sorted(tuple(r.init_pos) for r in results)
+        want = sorted(tuple(np.asarray(t.pos, np.float64))
+                      for t in field["targets"])
+        finite = bool(np.all(np.isfinite([r.elbo for r in results])))
+        by_rank = [s["kernel_launches"] for s in summaries]
+        for launches in by_rank:
+            for k, n in launches.items():
+                total[k] += n
+        wall = summaries[0]["wall_s"]
+        msg = (f"phase 18b: the worker --distributed on {POD_RANKS} ranks "
+               f"over phase 11's field, 2 x 1 boxes: "
+               f"{summaries[0]['boxes_done']} boxes done in {wall:.3f} s, "
+               f"{len(results)} sources, {len(results) / wall:.3f} "
+               f"sources/s; phase 11's targets {len(want)}, saved once each "
+               f"at the catalog position {saved == want}; finite ELBOs "
+               f"{finite}; K1-K3 launches by rank {by_rank}; K3 at D = 12 "
+               f"by rank "
+               f"{[s['tr_launches_by_dim'].get('12', 0) for s in summaries]}")
+        print(msg, flush=True)
+        ok = (all(queue.done(b) for b in boxes) and saved == want and finite
+              and all(s["world_size"] == POD_RANKS for s in summaries))
+        if cuda:
+            ok = ok and all(n > 0 for launches in by_rank
+                            for n in launches.values())
+        if not ok:
+            failed.append(msg)
+    print(f"phase 18: pod wall {pod_wall:.1f} s (spawn, both parts, exit; "
+          f"the one-process fits beside it)", flush=True)
+    check(not failed, "; ".join(failed))
+    print("phase 18 ok", flush=True)
+    return total
+
+
 SOURCES = {
     "refresh": ("celeste_jl_tpu_torch/csrc/refresh.cu",
                 "celeste_jl_tpu/ops/pallas_refresh.py:186"),
@@ -3142,6 +3394,9 @@ def main():
         t0 = time.perf_counter()
         phase_results_to_fits(app_field)
         _phase_clock("17d", t0)
+        t0 = time.perf_counter()
+        pod = phase_pod(app_field)
+        _phase_clock(18, t0)
     except PhaseError as e:
         print(f"FAILED: {e}", flush=True)
         return 1
@@ -3154,6 +3409,7 @@ def main():
              field_launches=field.get(k, 0), app_launches=app.get(k, 0),
              multifield_launches=multi.get(k, 0),
              galsim_launches=galsim.get(k, 0), farm_launches=farm.get(k, 0),
+             pod_launches=pod.get(k, 0),
              **{f"{path}_launches": n.get(k, 0)
                 for path, n in science.items()},
              **rec[k])

@@ -232,8 +232,7 @@ def test_worker_cli_on_the_sdss_fixture(tmp_path, monkeypatch, sdss_field,
     pipelined joint_vi loop and left whole for --no-pipeline with svi cut
     to 50 steps (the loop is tests/test_multinode.py's, above):
     every box saved, each true source found once across the boxes' files,
-    within 1 px, the summary line printed; a rerun completes nothing;
-    --distributed refuses to run."""
+    within 1 px, the summary line printed; a rerun completes nothing."""
     from celeste_jl_tpu_torch.parallel import run
     from celeste_jl_tpu_torch.vi.stochastic import SVIConfig
 
@@ -265,4 +264,59 @@ def test_worker_cli_on_the_sdss_fixture(tmp_path, monkeypatch, sdss_field,
         assert sum(x < 1.0 for x in d) == 1, d
     rc, again = _worker(argv)
     assert rc == 0 and again["boxes_done"] == 0
-    assert worker.main(argv + ["--distributed"], device="cpu") != 0
+
+
+def test_distributed_worker_cli_on_the_sdss_fixture(tmp_path, monkeypatch,
+                                                    capfd, sdss_field):
+    """The worker CLI with --distributed on a pod of two Gloo ranks
+    (parallel/mesh.spawn_pod) over tests/sdss_fixtures' field split 2 x 1:
+    every box saved by rank 0; each target (a detection inside its box)
+    saved once, its init_pos the catalog position (not the fitted vp[:2])
+    and is_sky_bad run.bad_sky's; each true source found once within 1
+    px; both ranks print the summary line with their rank, the pod's
+    size and every rank's launches."""
+    import functools
+
+    from celeste_jl_tpu_torch.io.sdss import SDSSDataSet
+    from celeste_jl_tpu_torch.parallel.mesh import spawn_pod
+    from celeste_jl_tpu_torch.parallel.run import bad_sky
+
+    base, truth, wcs = sdss_field
+    lo, hi = wcs.pix_to_world([10.0, 10.0]), wcs.pix_to_world([90.0, 60.0])
+    box = (min(lo[0], hi[0]), max(lo[0], hi[0]), min(lo[1], hi[1]),
+           max(lo[1], hi[1]))
+    workdir = str(tmp_path / "work")
+    argv = ["--workdir", workdir, "--basedir", str(base), "--box",
+            ",".join(repr(float(v)) for v in box), "--grid", "2x1",
+            "--detect-thresh", "8", "--distributed"]
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")   # one thread a rank
+    rank0 = functools.partial(worker.main, config=SHORT,
+                              newton_config=SHORT_NEWTON, device="cpu")
+    assert spawn_pod(2, rank0, argv, device="cpu", timeout_s=300.0) == 0
+    lines = [json.loads(x) for x in capfd.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert sorted(x["rank"] for x in lines) == [0, 1]
+    for x in lines:
+        assert x["world_size"] == 2 and x["boxes_done"] == 2
+        assert x["pending"] == 0 and x["sources_in_results"] == len(truth)
+        assert x["kernel_launches_by_rank"] == [
+            {"refresh": 0, "jacobi_sweep": 0, "tr_subproblem": 0}] * 2
+
+    q = FileWorkQueue(workdir)
+    dataset = SDSSDataSet(str(base), device="cpu")
+    saved = []
+    for b in q.boxes():
+        images = dataset.load_images(b)
+        catalog, _ = detect_sources(images, thresh=8.0, boxsize=(
+            min(256, images[0].H), min(256, images[0].W)))
+        targets = [ce for ce in catalog if b.contains(*ce.pos)]
+        results = load_results(q._result_file(b))
+        assert len(results) == len(targets) > 0
+        for r, ce in zip(results, targets):
+            np.testing.assert_array_equal(r.init_pos, ce.pos)
+            assert not np.array_equal(r.init_pos, r.vs[:2])
+            assert r.is_sky_bad == bad_sky(ce, images)
+            saved.append(wcs.world_to_pix(r.init_pos))
+    for t in truth:
+        d = [np.linalg.norm(p - wcs.world_to_pix(t.pos)) for p in saved]
+        assert sum(x < 1.0 for x in d) == 1, d

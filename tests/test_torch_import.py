@@ -85,7 +85,8 @@ def test_port_modules_import_without_jax():
               "benchmark.galsim", "benchmark.bundle",
               "benchmark.independent_render", "benchmark.galsim_suite",
               "benchmark.worker_farm", "models.fit_priors",
-              "parallel.multinode", "worker", "experiments.mcmc_experiment",
+              "parallel.multinode", "parallel.mesh", "worker",
+              "experiments.mcmc_experiment",
               "experiments.mcmc_figures", "benchmark.bench_elbo",
               "benchmark.calibration", "benchmark.svi_compare",
               "results_to_fits"):
@@ -188,13 +189,15 @@ def test_entry_points_match_the_c_signatures():
 
 
 def test_chip_smoke_app_phases_run_on_cpu_twins(monkeypatch):
-    """Phases 11, 12, 16 and 17d of chip_smoke.py (the survey app, the farm
-    worker and results_to_fits over its files) on a 96 x 64 and a 64 x 64
-    SDSS field of a few sources on the CPU, the schedules cut short (SVI
-    to 50 steps, main's single_vi fits to 3 refresh cycles): the field
-    writer, main, the scorer through the TAN WCS, the route comparisons,
-    the worker CLI over phase 11's files with its resume, and the FITS
-    catalog of its files, not the kernels."""
+    """Phases 11, 12, 16, 17d and 18 of chip_smoke.py (the survey app, the
+    farm worker, results_to_fits over its files and the pod) on a 96 x 64
+    and a 64 x 64 SDSS field of a few sources on the CPU, the schedules
+    cut short (SVI to 50 steps, main's single_vi fits to 3 refresh
+    cycles): the field writer, main, the scorer through the TAN WCS, the
+    route comparisons, the worker CLI over phase 11's files with its
+    resume, the FITS catalog of its files, and phase 18's pod of two
+    ranks (a (1, 2) mesh's fit of 2 sources on 16 x 16 tiles, the worker
+    CLI --distributed over phase 11's files), not the kernels."""
     import functools
     import shutil
 
@@ -234,6 +237,11 @@ def test_chip_smoke_app_phases_run_on_cpu_twins(monkeypatch):
         assert farm == {k: 0 for k in cs.FIELD_KERNELS}
         # phase 17d: the farm's result files as one FITS catalog
         cs.phase_results_to_fits(field, device="cpu")
+        # phase 18: the pod, every bar held
+        pod = cs.phase_pod(field, device="cpu", n_sources=2, tile=16,
+                           meshes=((1, 2),),
+                           config=NewtonConfig(max_iters=3))
+        assert pod == {k: 0 for k in cs.SOURCES}
     finally:
         if field:
             shutil.rmtree(field["dir"], ignore_errors=True)
@@ -317,3 +325,12 @@ def test_chip_smoke_science_phases_run_on_cpu_twins(monkeypatch, tmp_path):
     monkeypatch.setattr(cs, "bench_config", lambda: short_fit)
     assert cs.phase_analytic(device="cpu", n_sources=2, n_batch=2,
                              tile=16) == zero
+
+
+def test_dryrun_multichip_runs_a_pod_of_two():
+    """parallel/mesh.dryrun_multichip(2): a (1, 2) mesh's sharded fit on a
+    spawned pod of two CPU ranks, shape and finite ELBOs checked."""
+    from celeste_jl_tpu_torch.parallel.mesh import dryrun_multichip
+
+    out = dryrun_multichip(2)
+    assert out["mesh"] == (1, 2) and out["vp_shape"] == (2, 44)
