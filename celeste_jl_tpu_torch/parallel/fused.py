@@ -42,6 +42,18 @@ returns a handle; _fused_joint_finish runs the schedule and applies it.
 JAX enqueues the schedule at dispatch and blocks on it at finish; here
 nothing can be enqueued ahead of the fit's host loop, so the schedule runs
 where JAX waits for it, and a failure surfaces where JAX's does.
+
+With a mesh (parallel/mesh.make_mesh over a pod) every rank runs the whole
+schedule on the same staged inputs, and each sub-fit's lanes are split
+over the mesh's src axis (mesh.fit_row_sharded, JAX's shard_map branch):
+each rank fits its block and the results are all-gathered, so every rank
+issues the same gathers in the same order (the skipped empty groups are
+known on the host, the same on every rank). Everything else that feeds
+the carry (the neighbors' background, the incumbents' ELBOs, the gain
+table and the blocking test) is computed whole on every rank from the
+gathered results, so after every step the carry is the same bits on
+every rank. A mesh whose src axis has one rank runs the one-process
+fits.
 """
 
 import time
@@ -58,6 +70,7 @@ from ..utils.flops import _TR_STEP_FLOPS, fit_flop_components_analytic
 from ..vi.init import generic_init_source
 from .common import (_beats, _elbo_values, _next_pow2, _render_neighbor_bg,
                      is_production_run)
+from .mesh import fit_row_sharded, row_block, src_size
 from .packing import fused_bucket_widths
 from .state import fit_for_width
 
@@ -97,25 +110,34 @@ def _account(cr, res, n, cnt, patches, config):
               + it[:n] * _TR_STEP_FLOPS).sum()
 
 
-def _sub_fit(cr, tbl, vp0, config, plain, label):
+def _sub_fit(cr, tbl, vp0, config, plain, label, mesh=None):
     """One batched fit of a lane row `tbl` against the carry's current
-    background: (FitResult, the lanes' patches, background E, V). The
-    fit's wall and lane width go to the telemetry as one launch."""
+    background: (FitResult, the lanes' patches, background E, V). With a
+    mesh whose src axis has more than one rank, the row is fit sharded
+    over it (mesh.fit_row_sharded: this rank fits mesh.row_block(W)
+    lanes). The fit's wall and this rank's lane width go to the telemetry
+    as one launch."""
     pc = tbl["patches"].index(tbl["lane_pat"])
     dtype = pc.pixels.dtype
     W = int(tbl["lane_src"].shape[0])
     t0 = telemetry.now()
     bg_E, bg_V = _render_neighbor_bg(cr.vps[tbl["nb_idx"]].to(dtype),
                                      tbl["nb_mask"], pc, tbl["n_slots"])
-    res = fit_for_width(W)(vp0.to(dtype), pc, bg_E, bg_V, config=config,
-                           plain=plain)
+    if src_size(mesh) > 1:
+        res = fit_row_sharded(vp0.to(dtype), pc, bg_E, bg_V, mesh,
+                              config=config, plain=plain)
+        width = row_block(W, mesh)
+    else:
+        res = fit_for_width(W)(vp0.to(dtype), pc, bg_E, bg_V,
+                               config=config, plain=plain)
+        width = W
     telemetry.record_launch_wall(t0, label)
-    telemetry.counters.lane_widths[W] += 1
+    telemetry.counters.lane_widths[width] += 1
     return res, pc, bg_E, bg_V
 
 
 def _fused_joint_program(cr, buckets, n_classes, n_sweeps, n_restart,
-                         config: NewtonConfig, plain=False):
+                         config: NewtonConfig, plain=False, mesh=None):
     """n_sweeps warm Gauss-Seidel sweeps, then n_restart fresh-restart
     sweeps, over the classes, one sub-fit per (class, tile bucket) group;
     empty groups are skipped. Sources of a class are mutually conflict-free,
@@ -127,7 +149,8 @@ def _fused_joint_program(cr, buckets, n_classes, n_sweeps, n_restart,
     nb_idx, nb_mask, fresh_vp0, pix_counts, n_slots. A warm step accepts
     every lane; a restart step refits from the fresh init and keeps the
     better of it and the incumbent re-evaluated under this step's
-    background (_beats)."""
+    background (_beats). mesh: each sub-fit sharded over its src axis
+    (_sub_fit)."""
     for step in range(n_classes * (n_sweeps + n_restart)):
         c = step % n_classes
         is_restart = step >= n_classes * n_sweeps
@@ -142,7 +165,7 @@ def _fused_joint_program(cr, buckets, n_classes, n_sweeps, n_restart,
             vp0 = tbl["fresh_vp0"] if is_restart else cr.vps[src]
             res, pc, bg_E, bg_V = _sub_fit(
                 cr, tbl, vp0, config, plain,
-                f"fused c={c} n={n} pad={W} P{bk['tile']}")
+                f"fused c={c} n={n} pad={W} P{bk['tile']}", mesh)
             vp = res.vp[:n].double()
             el = res.elbo[:n].double()
             cv = res.converged[:n]
@@ -161,7 +184,7 @@ def _fused_joint_program(cr, buckets, n_classes, n_sweeps, n_restart,
 
 
 def _fused_wide_pass(cr, wide, config: NewtonConfig, plain=False,
-                     fresh=True, resolve=True):
+                     fresh=True, resolve=True, mesh=None):
     """One full-budget pass over all the schedule's sources at once, a
     fresh generic-init probe (fresh=True) or a warm refit: one wide fit per
     tile bucket against the vps frozen at entry, keep-better acceptance
@@ -175,7 +198,8 @@ def _fused_wide_pass(cr, wide, config: NewtonConfig, plain=False,
     under this pass's background (the host path's keep_better).
 
     `wide`: per tile bucket, one lane row (n_real real lanes, then pads)
-    with the same fields as a class row of _fused_joint_program."""
+    with the same fields as a class row of _fused_joint_program. mesh:
+    each bucket's fit sharded over its src axis (_sub_fit)."""
     fitted = []
     gain_tbl = torch.full_like(cr.elbos, -torch.inf)
     # phase 1: every bucket against the frozen vps (buckets are disjoint,
@@ -186,7 +210,7 @@ def _fused_wide_pass(cr, wide, config: NewtonConfig, plain=False,
         vp0 = bw["fresh_vp0"] if fresh else cr.vps[src]
         res, pc, bg_E, bg_V = _sub_fit(
             cr, bw, vp0, config, plain,
-            f"fused wide n={n} pad={W} P{bw['tile']}")
+            f"fused wide n={n} pad={W} P{bw['tile']}", mesh)
         inc = _elbo_values(cr.vps[src].to(pc.pixels.dtype), pc, bg_E,
                            bg_V)[:n].double()
         el = res.elbo[:n].double()
@@ -234,7 +258,7 @@ def _lane_row(lanes, n_real, pat_row, nb_idx, nb_mask, fresh_by_src,
 def _fused_joint_dispatch(states, classes, newton_config, n_sweeps,
                           n_restart, budget_bytes=4 << 30,
                           restart_config=None, polish_config=None,
-                          n_polish=2, plain=False):
+                          n_polish=2, plain=False, mesh=None):
     """Host staging of the fused schedule over ONE OR MORE fields; returns
     the handle _fused_joint_finish runs, or None when the staging would
     not fit `budget_bytes` (the caller falls back to per-field scheduling).
@@ -256,7 +280,12 @@ def _fused_joint_dispatch(states, classes, newton_config, n_sweeps,
     then n_polish Gauss-Seidel polish sweeps at polish_config (or
     restart_config). Otherwise: n_sweeps warm sweeps then n_restart
     per-class restart sweeps, all at newton_config. plain: every fit runs
-    the kernels' plain twins."""
+    the kernels' plain twins. mesh: a (src, pix) mesh over a pod whose
+    every rank stages the same fields; the schedule's fits are sharded
+    over its src axis (JAX fused.py:498-513). The rows are not padded to
+    the axis here: mesh.fit_row_sharded pads each row to a multiple of
+    it (blocks of two lanes or more, mesh.row_block), where JAX pads W to
+    the axis's power of two (:332-334, :426-428)."""
     t_start = time.perf_counter()
     offsets = np.cumsum([0] + [len(st.catalog) for st in states])
     S_tot = int(offsets[-1])
@@ -356,6 +385,7 @@ def _fused_joint_dispatch(states, classes, newton_config, n_sweeps,
             "n_polish": n_polish, "config": newton_config,
             "restart_config": restart_config,
             "polish_config": polish_config or restart_config, "plain": plain,
+            "mesh": mesh,
             "touched": sorted({m for cls in classes for m in cls}),
             "n_fits": sum(len(cls) for cls in classes)
             * (n_sweeps + (0 if n_wide else n_restart) + n_wide),
@@ -365,17 +395,18 @@ def _fused_joint_dispatch(states, classes, newton_config, n_sweeps,
 def _run_schedule(h):
     """The staged schedule of handle `h`, on its carry."""
     cr, bk, n_cls = h["carry"], h["buckets"], h["n_classes"]
+    mesh = h["mesh"]
     if h["split"]:
         _fused_joint_program(cr, bk, n_cls, h["n_sweeps"], 0, h["config"],
-                             h["plain"])
+                             h["plain"], mesh)
         _fused_wide_pass(cr, h["wide"], h["restart_config"], h["plain"],
-                         fresh=True, resolve=False)
+                         fresh=True, resolve=False, mesh=mesh)
         if h["n_polish"] > 0:
             _fused_joint_program(cr, bk, n_cls, h["n_polish"], 0,
-                                 h["polish_config"], h["plain"])
+                                 h["polish_config"], h["plain"], mesh)
     else:
         _fused_joint_program(cr, bk, n_cls, h["n_sweeps"], h["n_restart"],
-                             h["config"], h["plain"])
+                             h["config"], h["plain"], mesh)
     touched = torch.as_tensor(h["touched"], device=cr.vps.device)
     # the schedule's one transfer: the touched rows and the sums
     sums = torch.stack([cr.rv, cr.tv, cr.ri, cr.ss, cr.fl]).cpu().numpy()
@@ -392,7 +423,11 @@ def _fused_joint_finish(handle):
     overwritten by the staged values. In production (CELESTE_PROD) a
     failure is logged, its sources counted in `failures`, and every field
     keeps its previous state (ParallelRun.jl:390-396); otherwise it
-    raises."""
+    raises. With a mesh, a fit that fails on one rank fails the same step
+    on every rank (mesh.fit_row_sharded), so every rank raises, or in
+    production every rank keeps its previous state; a rank that dies, or
+    fails outside a fit, leaves the others waiting in their next gather
+    until the pod's group timeout, which raises there."""
     t0 = time.perf_counter()
     try:
         vps_o, elbos_o, conv_o, iters_o, sums = _run_schedule(handle)

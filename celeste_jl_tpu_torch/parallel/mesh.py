@@ -92,18 +92,20 @@ def _axis(mesh, name):
     return mesh.size(dim), mesh.get_local_rank(name), mesh.get_group(name)
 
 
-def _pad_sources(vp0s, patches, multiple):
-    """Repeat lane 0 until the batch is a multiple of `multiple`. Returns
-    (vp0s, patches, the original S)."""
+def _pad_sources(vp0s, patches, multiple, *lanes):
+    """Repeat lane 0 until the batch is a multiple of `multiple`, in vp0s,
+    patches and each (S, ...) tensor of `lanes`. Returns (vp0s, patches,
+    the original S, *lanes)."""
     S = vp0s.shape[0]
     reps = math.ceil(S / multiple) * multiple - S
     if reps == 0:
-        return vp0s, patches, S
+        return (vp0s, patches, S, *lanes)
 
     def pad(x):
         return torch.cat([x, x[:1].expand((reps,) + x.shape[1:])], dim=0)
 
-    return pad(vp0s), SkyPatch(*[pad(f) for f in patches]), S
+    return (pad(vp0s), SkyPatch(*[pad(f) for f in patches]), S,
+            *(pad(x) for x in lanes))
 
 
 def _row_block(patches, pix_rank, rows):
@@ -160,6 +162,74 @@ def fit_sources_sharded(vp0s, patches, mesh, include_kl=True,
     if n_src == 1:
         return FitResult(*(f[:S] for f in res))
     return FitResult(*(_gather_lanes(f, src_group)[:S] for f in res))
+
+
+def src_size(mesh):
+    """The size of the mesh's src axis (1 without a mesh)."""
+    return 1 if mesh is None else _axis(mesh, SRC_AXIS)[0]
+
+
+def _raise_if_a_rank_failed(exc, mesh, device):
+    """Tell every rank of the mesh whether any rank's fit raised (a flag
+    all-reduced over src, then over pix), and raise on every rank if one
+    did: the rank that failed its own exception, the others a
+    RuntimeError. Without this the others would wait in the gather for
+    the failed rank until the group's timeout."""
+    flag = torch.tensor([0.0 if exc is None else 1.0], device=device)
+    for name in (SRC_AXIS, PIX_AXIS):
+        n, _, group = _axis(mesh, name)
+        if n > 1:
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    if exc is not None:
+        raise exc
+    if flag.item() > 0:
+        raise RuntimeError("a fit failed on another rank of the mesh")
+
+
+def row_block(W, mesh):
+    """The lanes each rank fits of a W-lane row sharded over the mesh's
+    src axis (fit_row_sharded): ceil(W / n_src), but never one lane of a
+    wider row. torch's CPU kernels take another path for a batch of one
+    (a one-matrix product rounds differently), and the fit's flat
+    directions grow that to ~1e-7; with blocks of two or more a lane's
+    arithmetic does not depend on its batch on the CPU, so a sharded
+    schedule there is the one-process schedule bit for bit. The rule
+    costs padding on the card, where a fit depends on its batch anyway: a
+    row of two lanes is not split (rank 0 fits both, the other ranks
+    padded copies of lane 0), and any row narrower than 2 n_src lanes
+    leaves some ranks with pads only."""
+    return max(-(-W // src_size(mesh)), min(W, 2))
+
+
+def fit_row_sharded(vp0s, patches, bg_E, bg_V, mesh,
+                    config: NewtonConfig = NewtonConfig(), plain=False):
+    """The fused schedule's fit of one lane row, sharded over the mesh's
+    src axis (JAX fused.py:67-103, the shard_map branch of a class step
+    and of a wide pass).
+
+    vp0s (W, 44), the lanes' patches and their neighbors' background
+    bg_E / bg_V (W, B, P, P), the same on every rank, on the rank's
+    device. The row is padded to n_src blocks of row_block(W) lanes by
+    repeating lane 0; each rank fits its block with fit_sources, whole
+    tiles and no pixel_group, and the FitResult is all-gathered over src
+    (the pad lanes dropped). JAX's in_specs name only src, so the ranks
+    along pix repeat the same fits. Source blocks end their Newton loops
+    at different refresh cycles, so no collective runs inside a fit.
+    Returns the whole row's FitResult on every rank. A fit that raises on
+    any rank raises on every rank of the mesh, at this call."""
+    n_src, src_rank, src_group = _axis(mesh, SRC_AXIS)
+    block = row_block(vp0s.shape[0], mesh)
+    vp0s, patches, W, bg_E, bg_V = _pad_sources(vp0s, patches,
+                                                 n_src * block, bg_E, bg_V)
+    lanes = slice(src_rank * block, (src_rank + 1) * block)
+    failed = None
+    try:
+        res = fit_sources(vp0s[lanes], patches.index(lanes), bg_E[lanes],
+                          bg_V[lanes], config=config, plain=plain)
+    except Exception as exc:
+        failed = exc
+    _raise_if_a_rank_failed(failed, mesh, vp0s.device)
+    return FitResult(*(_gather_lanes(f, src_group)[:W] for f in res))
 
 
 # ---------------------------------------------------------------------------

@@ -182,7 +182,7 @@ def one_node_joint_infer(catalog, images, target_sources=None,
                          seed=42, state=None, checkpoint_path=None,
                          restart_final=True, active_boxes=None, *,
                          device="cuda", dtype=torch.float32, plain=False,
-                         fused=True):
+                         fused=True, mesh=None):
     """Joint VI over all targets: num_joint_vi_iters warm sweeps over
     conflict-free classes of the overlap graph, each class one batched
     launch per tile bucket with the neighbors as freshest-vp background;
@@ -209,7 +209,15 @@ def one_node_joint_infer(catalog, images, target_sources=None,
     warm sweeps at the caller's solver (each class's last fit predates its
     neighbors' later moves).
 
-    plain: run every kernel's plain twin (the comparison route)."""
+    plain: run every kernel's plain twin (the comparison route).
+
+    mesh: a (src, pix) mesh (parallel/mesh.make_mesh) over a pod whose
+    every rank makes this call with the same arguments: the fused
+    schedule's fits are sharded over its src axis (fused.py) and every
+    rank returns the same results. The isolated targets' fits and the
+    host-driven loop are not sharded, as in the JAX package (run.py:378
+    hands the mesh to the fused dispatch alone): every rank runs them
+    whole."""
     st = state or InferenceState(catalog, images, config, target_sources,
                                  max_neighbors, active_boxes=active_boxes,
                                  device=device, dtype=dtype, plain=plain)
@@ -260,7 +268,7 @@ def one_node_joint_infer(catalog, images, target_sources=None,
                     n_sweeps=config.num_joint_vi_iters,
                     n_restart=1 if restart_final else 0,
                     restart_config=restart_cfg, polish_config=polish_cfg,
-                    n_polish=n_polish, plain=plain)
+                    n_polish=n_polish, plain=plain, mesh=mesh)
             _fit_isolated_multi([st], isolated, newton_config, plain=plain)
             isolated_done = True
             if not constrained or handle is not None:
@@ -316,7 +324,7 @@ def one_node_joint_infer(catalog, images, target_sources=None,
 def joint_infer_fields(fields, config=Config(),
                        newton_config=NewtonConfig(), max_neighbors=8,
                        seed=42, restart_final=True, *, device="cuda",
-                       dtype=torch.float32, plain=False):
+                       dtype=torch.float32, plain=False, mesh=None):
     """Joint VI over MULTIPLE independent fields (boxes) as ONE fused
     schedule.
 
@@ -332,7 +340,8 @@ def joint_infer_fields(fields, config=Config(),
     thread scheduling (ParallelRun.jl:302-369), which never shared a
     thread pool across boxes. Falls back to per-field one_node_joint_infer
     when the merged staging exceeds the device budget. Runs on `device`
-    in `dtype`; plain runs the kernels' plain twins."""
+    in `dtype`; plain runs the kernels' plain twins; mesh: as
+    one_node_joint_infer's, for the merged schedule and the fallback."""
     states, classes, isolated = _merged_states_classes(
         fields, config, max_neighbors, seed, device, dtype, plain)
     iso_cfg, step_cfg, restart_cfg, polish_cfg, n_polish = _joint_configs(
@@ -343,14 +352,15 @@ def joint_infer_fields(fields, config=Config(),
         handle = _fused_joint_dispatch(
             states, classes, step_cfg, n_sweeps=config.num_joint_vi_iters,
             n_restart=1 if restart_final else 0, restart_config=restart_cfg,
-            polish_config=polish_cfg, n_polish=n_polish, plain=plain)
+            polish_config=polish_cfg, n_polish=n_polish, plain=plain,
+            mesh=mesh)
         if handle is None:
             return [one_node_joint_infer(
                 f["catalog"], f["images"], f.get("target_sources"), config,
                 newton_config=newton_config, max_neighbors=max_neighbors,
                 seed=seed, restart_final=restart_final,
                 active_boxes=f.get("active_boxes"), device=device,
-                dtype=dtype, plain=plain) for f in fields]
+                dtype=dtype, plain=plain, mesh=mesh) for f in fields]
     _fit_isolated_multi(states, isolated, iso_cfg, plain=plain)
     if handle is not None:
         _fused_joint_finish(handle)
@@ -503,7 +513,8 @@ def joint_infer_fields_pipelined(groups, config=Config(),
                                  newton_config=NewtonConfig(),
                                  max_neighbors=8, seed=42,
                                  restart_final=True, *, device="cuda",
-                                 dtype=torch.float32, plain=False):
+                                 dtype=torch.float32, plain=False,
+                                 mesh=None):
     """Farm-worker pipeline over fused multi-field schedules.
 
     `groups` is an ITERABLE of `fields` lists (each group one fused
@@ -519,7 +530,8 @@ def joint_infer_fields_pipelined(groups, config=Config(),
     is half joint_infer_fields'. A group that still exceeds it drains the
     pipeline and falls back to the per-field path. Telemetry counters are
     NOT reset per group: reset them before iterating for a per-farm
-    report."""
+    report. mesh: as one_node_joint_infer's, for every group's schedule
+    and fallback."""
     pending = None
     iso_cfg, step_cfg, restart_cfg, polish_cfg, n_polish = _joint_configs(
         newton_config, config, resolve(device), dtype)
@@ -539,7 +551,8 @@ def joint_infer_fields_pipelined(groups, config=Config(),
             states, classes, step_cfg, n_sweeps=config.num_joint_vi_iters,
             n_restart=n_restart, restart_config=restart_cfg,
             polish_config=polish_cfg, n_polish=n_polish,
-            budget_bytes=2 << 30, plain=plain) if classes else None)
+            budget_bytes=2 << 30, plain=plain, mesh=mesh) if classes
+            else None)
         if classes and handle is None:
             if pending is not None:
                 yield finish(pending)
@@ -549,7 +562,7 @@ def joint_infer_fields_pipelined(groups, config=Config(),
                 newton_config=newton_config, max_neighbors=max_neighbors,
                 seed=seed, restart_final=restart_final,
                 active_boxes=f.get("active_boxes"), device=device,
-                dtype=dtype, plain=plain) for f in fields]
+                dtype=dtype, plain=plain, mesh=mesh) for f in fields]
             continue
         if pending is not None:
             yield finish(pending)

@@ -171,7 +171,18 @@ Phases, one line each; the first failure exits non-zero:
      K1-K3 launched; (b) the worker CLI --distributed on both ranks over
      phase 11's files, 2 x 1 boxes: every box saved by rank 0, each of
      phase 11's targets once at its catalog position, finite ELBOs,
-     every rank's K1-K3 launched; the pod's sources/s.
+     every rank's K1-K3 launched; the pod's sources/s; (c) the joint
+     schedule with its fits sharded: one_node_joint_infer(mesh=) on a (2,
+     1) mesh over a field at phase 9's density, POD_JOINT_SOURCES = 64
+     sources on 362 x 362 px (seed 7; phase 9's 128 on 512 x 512 cut to
+     keep the script inside its time limit), detected here as phase 9
+     detects, one warm and one polish sweep (POD_JOINT_CONFIG), f64
+     through K1-K3, against the same call at mesh=None in this process
+     beside the pod. Bars: every rank's results equal bit for bit, 0
+     flips, the field's total ELBO within 1e-5 relative, each rank's
+     K1-K3 launched; printed: each source's worst relative ELBO
+     departure and the count over 1e-4 (the sharded pjacobi fits depend
+     on their batch: ROADMAP queue 3), the walls and launches by rank.
 Each phase prints its wall time; phases 7, 10, 12, 14, 15, 16, 17a, 17e
 and 17f run together after 13 and print one (the route pool: its
 processes block on the card's synchronizations, _blocking_sync). The line before the last is the
@@ -3094,6 +3105,14 @@ POD_RANKS = 2
 POD_MESHES = ((1, 2), (2, 1))   # (n_src, n_pix): pixel-, source-sharded
 POD_ELBO_TOL = 1e-6
 POD_TIMEOUT_S = 400.0
+POD_JOINT_TOTAL_TOL = 1e-5   # 18c: the field's total ELBO, relative
+POD_JOINT_SOURCE_REPORT = 1e-4
+# 18c's field: phase 9's density (128 sources on 512 x 512 px) at half
+# its sources; its schedule (Config()'s keywords) one warm sweep and one
+# polish sweep, every stage still run, to keep the script inside its time
+# limit (a rank took 42 s at Config(), 31 s so on the H100)
+POD_JOINT_SOURCES, POD_JOINT_SIZE = 64, 362
+POD_JOINT_CONFIG = dict(num_joint_vi_iters=1, polish_sweeps=1)
 
 
 def _sync(dev):
@@ -3104,15 +3123,17 @@ def _sync(dev):
 
 
 def pod_rank(vp0s, patches, config, meshes, worker_argv, worker_config,
-             device):
+             device, joint=None):
     """One rank of phase 18's pod (parallel/mesh.spawn_pod), f64: (a)
     fit_sources_sharded of vp0s / patches (numpy; to the rank's device)
     over each (n_src, n_pix) mesh of `meshes` with `config`; (b) with
     worker_argv, the worker CLI's main with --distributed (newton_config
-    worker_config). Returns (every
-    rank gets it; spawn_pod hands back rank 0's) each mesh's whole fit
-    with every rank's free vectors, wall and K1-K3 launches, and every
-    rank's worker summary line."""
+    worker_config); (c) with `joint` (pod_joint_kwargs'), the joint
+    schedule's one_node_joint_infer on a (POD_RANKS, 1) mesh. Returns
+    (every rank gets it; spawn_pod hands back rank 0's) each mesh's whole
+    fit with every rank's free vectors, wall and K1-K3 launches, every
+    rank's worker summary line, and every rank's joint results, wall and
+    K1-K3 launches."""
     import contextlib
     import io
 
@@ -3123,6 +3144,7 @@ def pod_rank(vp0s, patches, config, meshes, worker_argv, worker_config,
     from celeste_jl_tpu_torch.models.patches import SkyPatch
     from celeste_jl_tpu_torch.parallel.mesh import (fit_sources_sharded,
                                                     make_mesh)
+    from celeste_jl_tpu_torch.parallel.run import one_node_joint_infer
 
     torch.set_num_threads(1)
     dev = torch.device(device)
@@ -3157,7 +3179,87 @@ def pod_rank(vp0s, patches, config, meshes, worker_argv, worker_config,
         summaries = [None] * world
         dist.all_gather_object(
             summaries, json.loads(buf.getvalue().strip().splitlines()[-1]))
-    return dict(fits=fits, worker=summaries)
+    joint_ranks = None
+    if joint is not None:
+        mesh = make_mesh(POD_RANKS, 1)
+        with Launches() as launches:
+            _sync(dev)
+            t0 = time.perf_counter()
+            res = one_node_joint_infer(mesh=mesh, device=device,
+                                       dtype=torch.float64, **joint)
+            _sync(dev)
+            mine = dict(_joint_arrays(res), wall=time.perf_counter() - t0,
+                        launches={k: launches.counts()[k]
+                                  for k in FIELD_KERNELS})
+        joint_ranks = [None] * world
+        dist.all_gather_object(joint_ranks, mine)
+    return dict(fits=fits, worker=summaries, joint=joint_ranks)
+
+
+def _joint_arrays(results):
+    """A joint run's results as arrays: vs (S, 44), elbo, converged."""
+    return dict(vs=np.stack([r.vs for r in results]),
+                elbo=np.array([r.elbo for r in results]),
+                converged=np.array([r.converged for r in results]))
+
+
+def pod_joint_kwargs(device="cuda", n_sources=POD_JOINT_SOURCES,
+                     size=POD_JOINT_SIZE, config=None, newton_config=None):
+    """Phase 18c's one_node_joint_infer arguments: field_scene(n_sources,
+    size, 7) drawn on `device` and detected as phase 9 detects, its
+    catalog, images and active boxes (host arrays, so that they pickle to
+    the ranks), Config(**POD_JOINT_CONFIG); config and newton_config
+    shorten the schedule for a CPU rehearsal."""
+    from celeste_jl_tpu_torch.ops.newton import NewtonConfig
+    from celeste_jl_tpu_torch.parallel.run import detect_sources
+    from celeste_jl_tpu_torch.parallel.state import detection_active_boxes
+    from celeste_jl_tpu_torch.utils.config import Config
+
+    images, _ = field_scene(n_sources, size, 7, device)
+    catalog, det_boxes = detect_sources(images, thresh=6.0,
+                                        boxsize=(size, size),
+                                        match_radius_deg=1.0)
+    print(f"phase 18c: field {n_sources} sources, {size}x{size} px, seed 7, "
+          f"{len(catalog)} detected", flush=True)
+    return dict(catalog=catalog, images=images,
+                active_boxes=detection_active_boxes(catalog, det_boxes,
+                                                    images),
+                config=config or Config(**POD_JOINT_CONFIG),
+                newton_config=newton_config or NewtonConfig())
+
+
+def _pod_joint_check(ranks, ref, ref_wall, cuda):
+    """Phase 18c's line and bars: every rank's joint results (pod_rank's)
+    against the one-process schedule's arrays `ref`. Returns (message,
+    ok)."""
+    from celeste_jl_tpu_torch.models.params import ids
+
+    got = ranks[0]
+    equal = all(np.array_equal(r[k], got[k]) for r in ranks
+                for k in ("vs", "elbo", "converged"))
+    star = ids.is_star[0]
+    flips = int(np.sum((got["vs"][:, star] > 0.5)
+                       != (ref["vs"][:, star] > 0.5)))
+    total = abs(got["elbo"].sum() - ref["elbo"].sum()) / abs(
+        ref["elbo"].sum())
+    rel = np.abs(got["elbo"] - ref["elbo"]) / np.abs(ref["elbo"])
+    same_conv = bool(np.array_equal(got["converged"], ref["converged"]))
+    launched = all(all(n > 0 for n in r["launches"].values())
+                   for r in ranks)
+    msg = (f"phase 18c: one_node_joint_infer on a ({POD_RANKS}, 1) mesh "
+           f"over its field, {len(ref['elbo'])} sources, f64, against "
+           f"the one-process schedule: ranks' results bit for bit equal "
+           f"{equal}; {flips} flips; total ELBO rel {total:.3g} (bar "
+           f"{POD_JOINT_TOTAL_TOL:g}); per source worst rel {rel.max():.3g}"
+           f", {int(np.sum(rel > POD_JOINT_SOURCE_REPORT))} over "
+           f"{POD_JOINT_SOURCE_REPORT:g} (printed, not held); converged "
+           f"flags equal {same_conv}; walls by rank "
+           f"{[round(r['wall'], 3) for r in ranks]} s, one process "
+           f"{ref_wall:.3f} s; K1-K3 launches by rank "
+           f"{[r['launches'] for r in ranks]}")
+    ok = (equal and flips == 0 and total <= POD_JOINT_TOTAL_TOL
+          and (launched or not cuda))
+    return msg, bool(ok)
 
 
 def _pod_mesh_check(fit, ref, e_at_vp, ref_label, elbo_tol, n_sources, tile,
@@ -3195,7 +3297,7 @@ def _pod_mesh_check(fit, ref, e_at_vp, ref_label, elbo_tol, n_sources, tile,
 
 
 def phase_pod(field=None, device="cuda", n_sources=64, tile=32,
-              meshes=POD_MESHES, config=None):
+              meshes=POD_MESHES, config=None, joint=None):
     """18. A pod of two ranks (parallel/mesh.spawn_pod, Gloo: on one card
     the two processes share it), f64:
     (a) phase 4's sources (synthetic_patch_batch(n_sources, tile, seed
@@ -3217,9 +3319,14 @@ def phase_pod(field=None, device="cuda", n_sources=64, tile=32,
     CLI's main with --distributed on both ranks over phase 11's files,
     its box split 2 x 1, detection as phase 11's. Bars: every box saved,
     each of phase 11's targets saved once, at its catalog position,
-    finite ELBOs, each rank's K1-K3 launched. Prints each mesh's walls
-    and launches by rank and the pod's sources/s. Returns the pod's
-    launches (both ranks, (a) and (b)) by kernel."""
+    finite ELBOs, each rank's K1-K3 launched;
+    (c) with `joint` (pod_joint_kwargs' field): the joint
+    schedule, one_node_joint_infer(mesh=) on a (2, 1) mesh, each class
+    step's and wide pass's fit split over the ranks, against the same
+    call at mesh=None run here beside the pod (_pod_joint_check's bars).
+    Prints each mesh's walls and launches by rank and the pod's
+    sources/s. Returns the pod's launches (both ranks, (a), (b) and (c))
+    by kernel."""
     import concurrent.futures
     import shutil
 
@@ -3230,7 +3337,8 @@ def phase_pod(field=None, device="cuda", n_sources=64, tile=32,
     from celeste_jl_tpu_torch.ops.newton import NewtonConfig
     from celeste_jl_tpu_torch.parallel import multinode as mn
     from celeste_jl_tpu_torch.parallel.mesh import spawn_pod
-    from celeste_jl_tpu_torch.parallel.run import card_newton_config
+    from celeste_jl_tpu_torch.parallel.run import (card_newton_config,
+                                                   one_node_joint_infer)
     from celeste_jl_tpu_torch.synthetic import synthetic_patch_batch
     from celeste_jl_tpu_torch.vi.elbo import elbo
     from celeste_jl_tpu_torch.vi.optimize import FitResult, fit_sources
@@ -3251,7 +3359,7 @@ def phase_pod(field=None, device="cuda", n_sources=64, tile=32,
         pending = ex.submit(
             spawn_pod, POD_RANKS, pod_rank, vp0s,
             tuple(t.cpu().numpy() for t in patches), cfg, meshes, argv,
-            config, device, device=device, timeout_s=POD_TIMEOUT_S)
+            config, device, joint, device=device, timeout_s=POD_TIMEOUT_S)
         whole = fit_sources(vp, patches, config=cfg)
         refs = {}
         for n_src, _ in meshes:
@@ -3261,6 +3369,13 @@ def phase_pod(field=None, device="cuda", n_sources=64, tile=32,
                                  config=cfg)
                      for i in range(0, n_sources, block)]
             refs[n_src] = FitResult(*(torch.cat(f) for f in zip(*parts)))
+        if joint is not None:
+            _sync(torch.device(device))
+            t1 = time.perf_counter()
+            joint_ref = _joint_arrays(one_node_joint_infer(
+                device=device, dtype=torch.float64, **joint))
+            _sync(torch.device(device))
+            joint_wall = time.perf_counter() - t1
         out = pending.result()
     pod_wall = time.perf_counter() - t0
     cuda = device == "cuda"
@@ -3317,8 +3432,16 @@ def phase_pod(field=None, device="cuda", n_sources=64, tile=32,
                             for n in launches.values())
         if not ok:
             failed.append(msg)
-    print(f"phase 18: pod wall {pod_wall:.1f} s (spawn, both parts, exit; "
-          f"the one-process fits beside it)", flush=True)
+    if joint is not None:
+        for r in out["joint"]:
+            for k, n in r["launches"].items():
+                total[k] += n
+        msg, ok = _pod_joint_check(out["joint"], joint_ref, joint_wall, cuda)
+        print(msg, flush=True)
+        if not ok:
+            failed.append(msg)
+    print(f"phase 18: pod wall {pod_wall:.1f} s (spawn, every part, exit; "
+          f"the one-process runs beside it)", flush=True)
     check(not failed, "; ".join(failed))
     print("phase 18 ok", flush=True)
     return total
@@ -3395,7 +3518,7 @@ def main():
         phase_results_to_fits(app_field)
         _phase_clock("17d", t0)
         t0 = time.perf_counter()
-        pod = phase_pod(app_field)
+        pod = phase_pod(app_field, joint=pod_joint_kwargs())
         _phase_clock(18, t0)
     except PhaseError as e:
         print(f"FAILED: {e}", flush=True)

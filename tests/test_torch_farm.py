@@ -230,13 +230,20 @@ def test_worker_cli_on_the_sdss_fixture(tmp_path, monkeypatch, sdss_field,
                                         pipelined):
     """The worker CLI over tests/sdss_fixtures' field, split 2 x 1 for the
     pipelined joint_vi loop and left whole for --no-pipeline with svi cut
-    to 50 steps (the loop is tests/test_multinode.py's, above):
-    every box saved, each true source found once across the boxes' files,
-    within 1 px, the summary line printed; a rerun completes nothing."""
+    to 50 steps and the PSF fits (the field-center and the per-source
+    ones, held to JAX in tests/test_torch_{io,psf_fit}.py) to 10 refresh
+    cycles (the loop is tests/test_multinode.py's, above): every box
+    saved, each true source found once across the boxes' files, within 1
+    px, the summary line printed; a rerun completes nothing."""
+    from celeste_jl_tpu_torch.models import psf_fit
     from celeste_jl_tpu_torch.parallel import run
     from celeste_jl_tpu_torch.vi.stochastic import SVIConfig
 
     monkeypatch.setattr(run, "SVIConfig", lambda: SVIConfig(steps=50))
+    fit_psf = psf_fit._fit
+    monkeypatch.setattr(psf_fit, "_fit", lambda stamps, K, config, plain:
+                        fit_psf(stamps, K, config._replace(max_iters=10),
+                                plain))
     base, truth, wcs = sdss_field
     lo, hi = wcs.pix_to_world([10.0, 10.0]), wcs.pix_to_world([90.0, 60.0])
     box = (min(lo[0], hi[0]), max(lo[0], hi[0]), min(lo[1], hi[1]),

@@ -8,6 +8,7 @@ import shutil
 import subprocess
 import sys
 
+import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,8 +71,9 @@ def test_port_modules_import_without_jax():
     celeste_jl_tpu_torch.worker --help` and every runner's --help
     (GalSim suite, MCMC experiment and figures, bench_elbo, calibration,
     SVI compare, results_to_fits) have run."""
-    # a subprocess: tests/conftest.py has imported jax into this one
-    proc = _run(["-c", _IMPORT_ALL], ROOT)
+    # a subprocess: tests/conftest.py has imported jax into this one;
+    # the imports, then the --help runs, in one
+    proc = _run(["-c", _IMPORT_ALL + _RUN_MAIN], ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 60, proc.stdout
@@ -91,8 +93,6 @@ def test_port_modules_import_without_jax():
               "benchmark.calibration", "benchmark.svi_compare",
               "results_to_fits"):
         assert f"celeste_jl_tpu_torch.{m}'" in proc.stdout, m
-    proc = _run(["-c", _RUN_MAIN], ROOT)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "--method" in proc.stdout and "svi" in proc.stdout
     assert "--workdir" in proc.stdout and "--group-boxes" in proc.stdout
     assert "--scenes" in proc.stdout and "--radius" in proc.stdout
@@ -152,11 +152,11 @@ def test_chip_smoke_phases_run_on_cpu_twins(monkeypatch):
     from celeste_jl_tpu_torch.ops.newton import NewtonConfig
     from celeste_jl_tpu_torch.utils.config import Config
 
-    tiny = Config(num_joint_vi_iters=1, joint_step_refreshes=2,
-                  polish_refreshes=2, polish_sweeps=1, probe_refreshes=2)
+    tiny = Config(num_joint_vi_iters=1, joint_step_refreshes=1,
+                  polish_refreshes=1, polish_sweeps=1, probe_refreshes=1)
     field = cs.phase_field(device="cpu", n_sources=4, size=48, rec=rec,
                            config=tiny, single_newton=NewtonConfig(
-                               max_iters=2), bars=False)
+                               max_iters=1), bars=False)
     assert field == {k: 0 for k in cs.FIELD_KERNELS}
     assert all(rec[k]["field"]["bound_ms"] > 0 for k in cs.FIELD_KERNELS)
     assert set(rec) == set(launches) == set(cs.SOURCES)
@@ -188,16 +188,30 @@ def test_entry_points_match_the_c_signatures():
     assert declared == _build.ENTRY_POINTS
 
 
+def _cut_psf_fits(mp):
+    """Every PSF fit of this process (models/psf_fit._fit, under
+    fit_psfs_batched) cut to 3 refresh cycles."""
+    from celeste_jl_tpu_torch.models import psf_fit
+
+    fit = psf_fit._fit
+    mp.setattr(psf_fit, "_fit", lambda stamps, K, config, plain: fit(
+        stamps, K, config._replace(max_iters=3), plain))
+
+
 def test_chip_smoke_app_phases_run_on_cpu_twins(monkeypatch):
     """Phases 11, 12, 16, 17d and 18 of chip_smoke.py (the survey app, the
     farm worker, results_to_fits over its files and the pod) on a 96 x 64
     and a 64 x 64 SDSS field of a few sources on the CPU, the schedules
     cut short (SVI to 50 steps, main's single_vi fits to 3 refresh
-    cycles): the field writer, main, the scorer through the TAN WCS, the
-    route comparisons, the worker CLI over phase 11's files with its
-    resume, the FITS catalog of its files, and phase 18's pod of two
+    cycles; phases 11's and 16's PSF fits, in this process, to 3 as
+    well; phase 12 holds its PSF fits to a process of its own, which
+    runs them whole): the field writer, main, the scorer through the TAN
+    WCS, the route comparisons, the worker CLI over phase 11's files with
+    its resume, the FITS catalog of its files, and phase 18's pod of two
     ranks (a (1, 2) mesh's fit of 2 sources on 16 x 16 tiles, the worker
-    CLI --distributed over phase 11's files), not the kernels."""
+    CLI --distributed over phase 11's files, and 18c's joint schedule on
+    a (2, 1) mesh over its field cut to 4 sources on 48 x 48 px, a
+    refresh a fit), not the kernels."""
     import functools
     import shutil
 
@@ -213,17 +227,19 @@ def test_chip_smoke_app_phases_run_on_cpu_twins(monkeypatch):
     rec = {"tr_subproblem": {}}
     field = {}
     try:
-        launches = cs.phase_app(device="cpu", H=96, W=64, n_sources=4,
-                                method="single_vi", rec=rec, bars=False,
-                                field=field)
+        with pytest.MonkeyPatch.context() as mp:
+            _cut_psf_fits(mp)
+            launches = cs.phase_app(device="cpu", H=96, W=64, n_sources=4,
+                                    method="single_vi", rec=rec, bars=False,
+                                    field=field)
         assert launches == {k: 0 for k in cs.FIELD_KERNELS}
         assert len(field["targets"]) == 4 and os.path.isdir(field["base"])
         k3 = rec["tr_subproblem"]["psf_fit"]
         assert (k3["B"], k3["D"]) == (4, 12) and k3["max_abs_err"] == 0.0
         assert k3["bound_ms"] > 0 and k3["bound_by"] in ("bytes",
                                                           "operations")
-        tiny = Config(num_joint_vi_iters=1, joint_step_refreshes=2,
-                      polish_refreshes=2, polish_sweeps=1, probe_refreshes=2)
+        tiny = Config(num_joint_vi_iters=1, joint_step_refreshes=1,
+                      polish_refreshes=1, polish_sweeps=1, probe_refreshes=1)
         cs.phase_app_routes(device="cpu", size=64, n_sources=3, config=tiny)
         # phase 16 on phase 11's files: every target saved once, the
         # resume completing nothing (bars=False: the fits are cut short);
@@ -231,16 +247,26 @@ def test_chip_smoke_app_phases_run_on_cpu_twins(monkeypatch):
         import pickle
 
         field = pickle.loads(pickle.dumps(field))
-        farm = cs.phase_farm(field, device="cpu", grid=(2, 1), config=tiny,
-                             newton_config=NewtonConfig(max_iters=3),
-                             bars=False)
+        with pytest.MonkeyPatch.context() as mp:
+            _cut_psf_fits(mp)
+            farm = cs.phase_farm(field, device="cpu", grid=(2, 1),
+                                 config=tiny,
+                                 newton_config=NewtonConfig(max_iters=3),
+                                 bars=False)
         assert farm == {k: 0 for k in cs.FIELD_KERNELS}
         # phase 17d: the farm's result files as one FITS catalog
         cs.phase_results_to_fits(field, device="cpu")
-        # phase 18: the pod, every bar held
+        # phase 18: the pod, every bar held; 18c on its field cut to 4
+        # sources on 48 x 48 px
+        joint = cs.pod_joint_kwargs(
+            device="cpu", n_sources=4, size=48,
+            config=Config(num_joint_vi_iters=1, joint_step_refreshes=1,
+                          polish_refreshes=1, polish_sweeps=1,
+                          probe_refreshes=1),
+            newton_config=NewtonConfig(max_iters=1, hess_every=2))
         pod = cs.phase_pod(field, device="cpu", n_sources=2, tile=16,
                            meshes=((1, 2),),
-                           config=NewtonConfig(max_iters=3))
+                           config=NewtonConfig(max_iters=3), joint=joint)
         assert pod == {k: 0 for k in cs.SOURCES}
     finally:
         if field:

@@ -15,8 +15,12 @@ tests/test_infer.py's three-overlapping-sources scene.
   host-driven schedule (CELESTE_FUSED=0) on the same images and catalog:
   the same classifications, ELBOs within 1e-4 relative (the fit bar of
   ROADMAP; f64 ridge lanes rule out bit-equality, queue 3). The fused
-  default is held to JAX's in tests/test_torch_fused.py.
+  default is held to JAX's in tests/test_torch_fused.py. That JAX run
+  goes in a process of its own, started with the suite's JAX settings
+  (tests/conftest.py), beside the port's infer_box.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -57,6 +61,7 @@ from celeste_jl_tpu_torch.parallel.state import (InferenceState,
 from celeste_jl_tpu_torch.utils import telemetry
 from celeste_jl_tpu_torch.utils.config import Config
 from celeste_jl_tpu_torch.vi.elbo import source_moment_grids
+from _jax_ref import jax_reference
 
 # The suite runs test files in parallel worker processes; one intra-op
 # thread each keeps torch from oversubscribing the cores.
@@ -391,16 +396,27 @@ def test_infer_box_rejects_unported_methods(scene, monkeypatch):
             infer_box(p_images, method="joint_vi", catalog=p_truth)
 
 
-@pytest.fixture(scope="module")
-def jax_host_run(scene):
+def _jax_host_run():
     """tests/test_infer.py's host-schedule run: JAX one_node_joint_infer on
-    the true catalog with CELESTE_FUSED=0, the schedule (classes, order,
-    acceptance) the port runs with fused=False."""
-    images, truth = scene[:2]
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("CELESTE_FUSED", "0")
-        return jax_joint_infer(truth, images, config=JCFG,
-                               newton_config=JaxNewton(max_iters=30), seed=42)
+    the scene's true catalog with CELESTE_FUSED=0, the schedule (classes,
+    order, acceptance) the port runs with fused=False. Each source's
+    (init_pos, vs, elbo, is_sky_bad), numpy; in a process of its own (it
+    sets the variable there)."""
+    images, truth = _three_overlapping()[:2]
+    os.environ["CELESTE_FUSED"] = "0"
+    return [(np.asarray(r.init_pos), np.asarray(r.vs), float(r.elbo),
+             bool(r.is_sky_bad))
+            for r in jax_joint_infer(truth, images, config=JCFG,
+                                     newton_config=JaxNewton(max_iters=30),
+                                     seed=42)]
+
+
+@pytest.fixture(scope="module")
+def jax_host_run():
+    """_jax_host_run (a future), computed in a process of its own while
+    this process runs the port's."""
+    with jax_reference(_jax_host_run) as future:
+        yield future
 
 
 def _r_flux(vp, star):
@@ -408,7 +424,7 @@ def _r_flux(vp, star):
     return np.exp(vp[ids.flux_loc[i]] + 0.5 * vp[ids.flux_scale[i]])
 
 
-def test_infer_box_joint_vi_matches_jax(scene, jax_host_run):
+def test_infer_box_joint_vi_matches_jax(jax_host_run, scene):
     """infer_box on the true catalog over the host schedule's classes
     (fused=False): the fit the JAX run makes (on this
     scene the capped sweep, probe and polish budgets are below both
@@ -429,8 +445,9 @@ def test_infer_box_joint_vi_matches_jax(scene, jax_host_run):
         assert np.isfinite(res.elbo)
         assert not res.is_sky_bad
     # against the JAX package's host-driven schedule
-    for g, w in zip(results, jax_host_run):
-        np.testing.assert_array_equal(g.init_pos, w.init_pos)
-        assert (g.vs[ids.is_star[0]] > 0.5) == (w.vs[ids.is_star[0]] > 0.5)
-        assert abs(g.elbo - w.elbo) <= 1e-4 * abs(w.elbo), (g.elbo, w.elbo)
-        assert g.is_sky_bad == w.is_sky_bad
+    for g, (w_pos, w_vs, w_elbo, w_bad) in zip(results,
+                                               jax_host_run.result()):
+        np.testing.assert_array_equal(g.init_pos, w_pos)
+        assert (g.vs[ids.is_star[0]] > 0.5) == (w_vs[ids.is_star[0]] > 0.5)
+        assert abs(g.elbo - w_elbo) <= 1e-4 * abs(w_elbo), (g.elbo, w_elbo)
+        assert g.is_sky_bad == w_bad

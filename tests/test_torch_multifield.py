@@ -13,6 +13,10 @@ tests/test_multifield.py's scenes:
   generator a group ahead of the consumer;
 - the budget fallback, and a fit failing inside the schedule in
   development and in production.
+
+The JAX package's merged run of the two fields goes in a process of its
+own, started with the suite's JAX settings (tests/conftest.py), beside
+the port's schedule.
 """
 
 import numpy as np
@@ -32,6 +36,7 @@ from celeste_jl_tpu_torch.parallel.run import (joint_infer_fields,
                                                one_node_joint_infer)
 from celeste_jl_tpu_torch.utils import telemetry
 from celeste_jl_tpu_torch.utils.config import Config
+from _jax_ref import jax_reference
 
 # The suite runs test files in parallel worker processes; one intra-op
 # thread each keeps torch from oversubscribing the cores.
@@ -83,6 +88,22 @@ def _two_fields():
     return [_mf_field(seed=1), _mf_field(seed=2, star_pos=(18.0, 40.0))]
 
 
+def _jax_two_fields():
+    """The JAX package's joint_infer_fields of the two fields: each
+    field's [(vs, elbo)], numpy."""
+    return [[(np.asarray(r.vs), float(r.elbo)) for r in res]
+            for res in jrun.joint_infer_fields(
+                [j for j, _ in _two_fields()], config=JMF_CFG, seed=42)]
+
+
+@pytest.fixture(scope="module")
+def jax_two_fields():
+    """_jax_two_fields (a future), computed in a process of its own while
+    this process runs merged_four."""
+    with jax_reference(_jax_two_fields) as future:
+        yield future
+
+
 @pytest.fixture(scope="module")
 def merged_four():
     """One full schedule over the two fields and the two internal-conflict
@@ -94,7 +115,7 @@ def merged_four():
                               **F64)
 
 
-def test_two_fields_match_each_field_and_jax(merged_four):
+def test_two_fields_match_each_field_and_jax(jax_two_fields, merged_four):
     """tests/test_multifield.py::test_two_fields_one_launch_matches_per_
     field on the port: the two fields merged (here with the conflict
     fields, merged_four) against the JAX package's merged result (the
@@ -105,13 +126,12 @@ def test_two_fields_match_each_field_and_jax(merged_four):
     pairs = _two_fields()
     multi = merged_four[:2]
     assert len(merged_four) == 4 and all(len(r) == 2 for r in multi)
-    jmulti = jrun.joint_infer_fields([j for j, _ in pairs], config=JMF_CFG,
-                                     seed=42)
+    jmulti = jax_two_fields.result()
     for got, want in zip(multi, jmulti):
-        for g, w in zip(got, want):
-            assert (g.vs[ids.is_star[0]] > 0.5) == (w.vs[ids.is_star[0]]
+        for g, (w_vs, w_elbo) in zip(got, want):
+            assert (g.vs[ids.is_star[0]] > 0.5) == (w_vs[ids.is_star[0]]
                                                      > 0.5)
-            assert abs(g.elbo - w.elbo) <= 1e-4 * abs(w.elbo)
+            assert abs(g.elbo - w_elbo) <= 1e-4 * abs(w_elbo)
     for got in multi:
         assert got[0].vs[ids.is_star[0]] > 0.5
         assert got[1].vs[ids.is_star[0]] < 0.5
